@@ -1,0 +1,162 @@
+"""K2: fused edit attention — wrapper, plain version and launch count.
+
+Replaces the JAX package's ``edit_attention`` (``p2p_tpu/kernels/fused_edit.py``,
+the Pallas ``_edit_kernel``): softmax attention with the prompt-to-prompt
+edit applied inside it, so the ``(2B, heads, P, K)`` probability tensor
+never reaches device memory. For every CFG row ``b`` of
+``[uncond(B); base; edits(E)]``::
+
+    probs  = softmax(q_b·k_bᵀ·scale)           key columns ≥ K masked
+    base   = softmax(q_B·k_Bᵀ·scale)           the source prompt's row
+    new    = base @ M                          Replace / Refine only
+    new    = new·ra + probs·(1 − ra)           Refine only
+    new    = new · eq                          Reweight only
+    edited = new·α + (1 − α)·probs
+    out    = (edited if b ≥ B + 1 else probs) @ v_b
+
+with the operands of :func:`controllers.kernel_spec.edit_operands`. The CUDA
+kernel is ``csrc/fused_edit.cu``; :func:`edit_attention_plain` is the same
+formula in plain PyTorch, on the lane-padded key axis with the JAX package's
+mask value. On a CPU tensor the wrapper runs the plain version; on a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..controllers.kernel_spec import EditSpec, edit_operands, kernel_edit_spec
+from . import build
+
+#: Additive mask of the lane-padded key columns (the JAX kernel's value).
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+#: Head dims the CUDA kernel is instantiated for.
+SUPPORTED_HEAD_DIMS = (16, 32, 40, 64, 80, 160)
+
+
+def edit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, spec: EditSpec, operands: dict
+                         ) -> torch.Tensor:
+    """The kernel's formula in plain PyTorch (f32), on keys padded to
+    ``spec.pad_len`` with masked logits, as the JAX kernel computes it."""
+    two_b = q.shape[0]
+    b_half = two_b // 2
+    kp = spec.pad_len
+    pad = kp - k.shape[2]
+    k_p = F.pad(k.float(), (0, 0, 0, pad))
+    v_p = F.pad(v.float(), (0, 0, 0, pad))
+    mask = torch.where(torch.arange(kp, device=q.device) < spec.key_len,
+                       0.0, MASK_VALUE).to(torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k_p) * scale + mask
+    probs = torch.softmax(logits, dim=-1)                   # (2B, H, P, Kp)
+    base = probs[b_half]                                    # (H, P, Kp)
+    edits = probs[b_half + 1:]                              # (E, H, P, Kp)
+    if spec.has_transform:
+        new = torch.einsum("hpw,ewn->ehpn", base, operands["transform"])
+    else:
+        new = base[None].expand_as(edits)
+    if spec.kind == "refine":
+        ra = operands["refine_mix"][:, None, None, :]
+        new = new * ra + edits * (1.0 - ra)
+    if spec.has_equalizer:
+        new = new * operands["equalizer"][:, None, None, :]
+    alpha = operands["blend"][:, None, None, :]
+    edited = new * alpha + (1.0 - alpha) * edits
+    probs = torch.cat([probs[:b_half + 1], edited], dim=0)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v_p).to(v.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.library("fused_edit")
+    fn = lib.p2p_fused_edit_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _operand(operands: dict, name: str, shape, device) -> Optional[torch.Tensor]:
+    t = operands.get(name)
+    if t is None:
+        return None
+    if (t.dtype != torch.float32 or t.device != device or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"edit_attention: operand {name} must be contiguous "
+                         f"f32 {tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t
+
+
+def edit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, spec: EditSpec, operands: dict) -> torch.Tensor:
+    """Fused attention with the in-kernel edit. q ``(2B, H, P, D)``, k and v
+    ``(2B, H, K, D)`` with K = ``spec.key_len`` (unpadded); ``operands`` from
+    ``edit_operands`` at the step. Returns ``(2B, H, P, D)``."""
+    two_b, heads, pixels, d = q.shape
+    if two_b // 2 < 2:
+        raise ValueError(f"edit_attention needs a base row and ≥ 1 edit row "
+                         f"in the cond half, got CFG batch {two_b}")
+    if k.shape[2] != spec.key_len:
+        raise ValueError(f"edit_attention: {k.shape[2]} keys, spec has "
+                         f"{spec.key_len}")
+    if q.device.type == "cpu":
+        return edit_attention_plain(q, k, v, scale, spec, operands)
+    if q.device.type != "cuda":
+        raise ValueError(f"edit_attention: unsupported device {q.device}")
+    if k.shape != (two_b, heads, spec.key_len, d) or v.shape != k.shape:
+        raise ValueError(f"edit_attention: shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"edit_attention: {name} must be contiguous f32 "
+                             f"on {q.device}, got {t.dtype} on {t.device}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"edit_attention: head dim {d} not in "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    e, kp = two_b // 2 - 1, spec.pad_len
+    transform = _operand(operands, "transform", (e, kp, kp), q.device)
+    refine_mix = _operand(operands, "refine_mix", (e, kp), q.device)
+    equalizer = _operand(operands, "equalizer", (e, kp), q.device)
+    blend = _operand(operands, "blend", (e, kp), q.device)
+    if blend is None or (transform is None) == spec.has_transform:
+        raise ValueError(f"edit_attention: operands {sorted(operands)} do not "
+                         f"match {spec}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
+    out = torch.empty_like(q)
+    status = lib.p2p_fused_edit_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(transform),
+        ptr(refine_mix), ptr(equalizer), blend.data_ptr(), out.data_ptr(),
+        two_b, heads, pixels, spec.key_len, d, kp, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, status, "p2p_fused_edit_fwd")
+    edit_attention.launches += 1
+    return out
+
+
+edit_attention.launches = 0
+
+
+def fused_site_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, controller, meta, step: int
+                         ) -> Optional[torch.Tensor]:
+    """Site-level entry: the site's spec from the controller, the step's
+    operands, the kernel. ``None`` when the site is not kernel-compilable
+    (the caller keeps the materialized path), and when the CFG batch has no
+    edit row."""
+    spec = kernel_edit_spec(controller, meta)
+    if spec is None or q.shape[0] // 2 < 2:
+        return None
+    ops = {name: t.contiguous()
+           for name, t in edit_operands(controller.edit, spec, step).items()}
+    return edit_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          scale, spec, ops)
