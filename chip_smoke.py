@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/H100 port: builds the CUDA kernels, holds each
-against its plain PyTorch version at every main-path geometry, and drives
-the SD-1.4 Replace edit end to end through ``text2image``.
+against its plain PyTorch version at every geometry its paths give it, and
+drives the SD-1.4 Replace edit, a null-text inversion and its replay edit end
+to end through the package's entry points.
 
     python3 chip_smoke.py
 
@@ -12,16 +13,27 @@ Phases, each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``), and the build of
    ``p2p_tpu_torch/csrc/*.cu`` for ``sm_90a`` (one ``nvcc`` per source, in
    parallel);
-2. kernel phases: K1 (flash attention) and K2 (fused edit) against their
-   plain versions on the same card inputs, max|Δ| ≤ 1e-4 in f32 with TF32
-   off; each timed with CUDA events beside its plain version, its roofline
-   bound and (K1) ``scaled_dot_product_attention`` as a yardstick;
+2. kernel phases: K1 (flash attention), K2 (fused edit), K3 (flash
+   forward with residuals) and K4 (flash backward, a dk/dv and a dq pass)
+   against their plain versions on the same card inputs, max|Δ| ≤ 1e-4 in
+   f32 with TF32 off (K3/K4: relative to the plain output's largest
+   magnitude); each timed with CUDA events beside its plain version, its
+   roofline bound and, where one exists, a PyTorch call computing the same
+   function (``scaled_dot_product_attention`` forward, or its backward);
 3. the main path: random SD-1.4 weights at full width from seed 0, 512²,
    2 prompts, DDIM 50 steps, CFG 7.5, an ``attention_replace`` edit
    (store off) with ``kernels=KernelConfig()``; the launch counts must be
    exactly 5 K1 and 22 K2 per step plus 1 K1 for the VAE, and the final
    latents must agree with the ``kernels=None`` run within 1e-2;
-4. one ``{"kernels": [...]}`` line, then the device line last.
+4. the inversion path: ``invert`` of a seeded 512² image at the reference
+   defaults (50 steps, 10 inner steps, early stop 1e-5, CFG 7.5); the
+   launch counts must be exactly what the layout and the inner-iteration
+   counts give (see ``inversion_path``) and every embedding finite;
+5. the replay edit of that artifact (Replace + LocalBlend + Reweight) with
+   ``kernels=KernelConfig()`` (exact K1/K2 counts), with ``kernels=None``
+   (latents within 1e-2) and with the raw ``""`` uncond: the source row must
+   end closer to the encoded image's latent with the optimized embeddings;
+6. one ``{"kernels": [...]}`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA card is visible or the
 package is missing.
@@ -40,6 +52,11 @@ KERNEL_TOL = 1e-4      # kernel vs plain version, f32, same inputs
 DRIFT_TOL = 1e-2       # fused-edit run vs materialized run, final latents
 STEPS = 50
 PROMPTS = ["a cat riding a bicycle", "a dog riding a bicycle"]
+INNER_STEPS = 10       # null-text inner iterations per outer step
+EARLY_STOP = 1e-5      # null-text early-stop threshold
+IMAGE_SEED = 0         # the inverted image, uint8 noise from numpy
+BLEND_WORDS = (("cat",), ("dog",))
+EQUALIZER = {"words": ("dog",), "values": (2.0,)}
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores (the kernels use
 # no TF32) and HBM3 bandwidth.
@@ -81,10 +98,13 @@ def card_line() -> str:
 
 
 def k1_phases(torch, K, F):
-    """K1 at the U-Net 64² self sites and the VAE mid attention."""
+    """K1 at the U-Net 64² self sites and the VAE mid attention: batch 4 and
+    2 on the edit paths, batch 1 in the inversion (its forwards without
+    gradient, and the VAE encode)."""
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
-    for shape, iters in (((4, 8, 4096, 40), 20), ((2, 1, 4096, 512), 10)):
+    for shape, iters in (((4, 8, 4096, 40), 20), ((2, 1, 4096, 512), 10),
+                         ((1, 8, 4096, 40), 20), ((1, 1, 4096, 512), 10)):
         b, h, s, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         scale = d ** -0.5
@@ -110,8 +130,13 @@ def k1_phases(torch, K, F):
 def k2_phases(torch, K):
     """K2 at every main-path (P, D, Kp): the 16 cross sites (Replace and
     Refine operands) and the 6 self sites inside (α = 1) and outside (α = 0)
-    the injection window."""
-    from p2p_tpu_torch.controllers.factory import attention_refine, attention_replace
+    the injection window; and the replay edit's cross sites at P = 4096
+    (Replace with Reweight's equalizer)."""
+    from p2p_tpu_torch.controllers.factory import (
+        attention_refine,
+        attention_replace,
+        make_controller,
+    )
     from p2p_tpu_torch.controllers.kernel_spec import edit_operands, kernel_edit_spec
     from p2p_tpu_torch.models.config import SD14, unet_layout
     from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
@@ -119,7 +144,9 @@ def k2_phases(torch, K):
     tok = HashWordTokenizer()
     refine_prompts = ["a cat riding a bicycle", "a cat riding a red bicycle"]
     ctrls = {"replace": attention_replace(PROMPTS, STEPS, 0.8, 0.4, tok, store=False),
-             "refine": attention_refine(refine_prompts, STEPS, 0.8, 0.4, tok, store=False)}
+             "refine": attention_refine(refine_prompts, STEPS, 0.8, 0.4, tok, store=False),
+             "reweight": make_controller(PROMPTS, True, 0.8, 0.4, tok, STEPS,
+                                         equalizer_params=EQUALIZER)}
     metas = {}
     for m in unet_layout(SD14.unet).metas:
         metas.setdefault((m.is_cross, m.pixels), m)
@@ -127,6 +154,7 @@ def k2_phases(torch, K):
     cases = [(kind, metas[(True, p)], 0) for p in (4096, 1024, 256, 64)
              for kind in ("replace", "refine")]
     cases += [("replace", metas[(False, p)], step) for p in (256, 64) for step in (0, 45)]
+    cases += [("reweight", metas[(True, 4096)], 0)]
     rows = []
     for kind, meta, step in cases:
         ctrl = ctrls[kind]
@@ -170,19 +198,103 @@ def k2_phases(torch, K):
     return rows
 
 
-def main_path(torch, K):
-    from p2p_tpu_torch import KernelConfig, attention_replace, random_pipeline, text2image
+def rel_err(torch, got, want, what: str) -> float:
+    """max|Δ| of a kernel output against its plain version, raising past
+    KERNEL_TOL relative to the plain version's largest magnitude."""
+    err = max_err(torch, got, want)
+    top = want.abs().max().item()
+    if err > KERNEL_TOL * top:
+        raise RuntimeError(f"{what}: max|Δ| {err} > {KERNEL_TOL} x {top}")
+    return err
+
+
+def k34_phases(torch, K, F):
+    """K3 (forward with residuals) and K4 (backward: dk/dv and dq passes) at
+    the U-Net 64² self sites under the inversion's gradient, (1, 8, 4096,
+    40); each pass against its plain version on the same inputs, and
+    ``scaled_dot_product_attention`` forward and backward as yardsticks."""
+    shape = (1, 8, 4096, 40)
+    b, h, s, d = shape
+    gen = torch.Generator("cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda") for _ in range(4))
+    scale = d ** -0.5
+    out, l, m = K.flash_attention_residuals(q, k, v, scale)
+    torch.cuda.synchronize()
+    p_out, p_l, p_m = K.flash_attention_residuals_plain(q, k, v, scale)
+    err3 = max(rel_err(torch, out, p_out, "K3 out"), rel_err(torch, l, p_l, "K3 l"),
+               rel_err(torch, m, p_m, "K3 m"))
+    # Both K4 passes and their plain versions take the plain forward's
+    # residuals, so each is held against its plain version alone.
+    di = (p_out * do).sum(dim=-1)
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, do, p_l, p_m, di, scale)
+    dq = K.flash_attention_bwd_dq(q, k, v, do, p_l, p_m, di, scale)
+    torch.cuda.synchronize()
+    p_dk, p_dv = K.flash_attention_bwd_dkv_plain(q, k, v, do, p_l, p_m, di, scale)
+    p_dq = K.flash_attention_bwd_dq_plain(q, k, v, do, p_l, p_m, di, scale)
+    err_dkv = max(rel_err(torch, dk, p_dk, "K4 dk"), rel_err(torch, dv, p_dv, "K4 dv"))
+    err_dq = rel_err(torch, dq, p_dq, "K4 dq")
+
+    # Ragged edges: a last tile part-full (S = 4100), and Sq != Sk.
+    for sq, sk in ((4100, 4100), (300, 70)):
+        rq, rdo = (torch.randn((1, 2, sq, d), generator=gen, device="cuda")
+                   for _ in range(2))
+        rk, rv = (torch.randn((1, 2, sk, d), generator=gen, device="cuda")
+                  for _ in range(2))
+        got = K.flash_attention_residuals(rq, rk, rv, scale)
+        want = K.flash_attention_residuals_plain(rq, rk, rv, scale)
+        got += K.flash_attention_bwd(rq, rk, rv, want[0], rdo, want[1], want[2], scale)
+        want += K.flash_attention_bwd_plain(rq, rk, rv, want[0], rdo, want[1],
+                                            want[2], scale)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("out", "l", "m", "dq", "dk", "dv"), got, want):
+            rel_err(torch, a, w, f"K3/K4 Sq={sq} Sk={sk} {name}")
+    print("K3/K4 ragged edges (Sq, Sk) = (4100, 4100), (300, 70): within tolerance")
+
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), do, retain_graph=True), 10)
+    n = b * h * s * d * 4                    # bytes of one (B, H, S, D) f32 tensor
+    stats = 4 * b * h * s                    # bytes of one (B, H, S) f32 tensor
+    flops = 2.0 * b * h * s * s * d          # one S x S x d product
+    rows = {}
+    bound_ms, bound_by = bound(2 * flops, 4 * n + 2 * stats)
+    rows["K3"] = {"shape": list(shape), "max_abs_err": err3,
+                  "ms": cuda_ms(torch, lambda: K.flash_attention_residuals(q, k, v, scale), 20),
+                  "plain_ms": cuda_ms(torch, lambda: K.flash_attention_residuals_plain(
+                      q, k, v, scale), 3),
+                  "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                      q, k, v, scale=scale), 20),
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    bound_ms, bound_by = bound(4 * flops, 6 * n + 3 * stats)
+    rows["K4_dkv"] = {"shape": list(shape), "max_abs_err": err_dkv,
+                      "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
+                          q, k, v, do, p_l, p_m, di, scale), 10),
+                      "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
+                          q, k, v, do, p_l, p_m, di, scale), 3),
+                      "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    bound_ms, bound_by = bound(3 * flops, 5 * n + 3 * stats)
+    rows["K4_dq"] = {"shape": list(shape), "max_abs_err": err_dq,
+                     "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
+                         q, k, v, do, p_l, p_m, di, scale), 10),
+                     "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
+                         q, k, v, do, p_l, p_m, di, scale), 3),
+                     "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    for name, r in rows.items():
+        print(f"{name} {shape}: max|Δ| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def main_path(torch, K, pipe):
+    from p2p_tpu_torch import KernelConfig, attention_replace, text2image
     from p2p_tpu_torch.kernels.dispatch import site_variant
     from p2p_tpu_torch.models.config import SD14, unet_layout
-    from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
-    tok = HashWordTokenizer()
-    t0 = time.perf_counter()
-    pipe = random_pipeline(SD14, tok, "cuda", seed=0)
-    ctrl = attention_replace(PROMPTS, STEPS, 0.8, 0.4, tok, store=False)
-    torch.cuda.synchronize()
-    print(f"main path: SD-1.4 random weights from seed 0 in "
-          f"{time.perf_counter() - t0:.1f} s")
+    ctrl = attention_replace(PROMPTS, STEPS, 0.8, 0.4, pipe.tokenizer, store=False)
     variants = [site_variant(KernelConfig(), ctrl, m) for m in unet_layout(SD14.unet).metas]
     n_k2 = variants.count("fused-edit")
     n_k1 = sum(1 for v, m in zip(variants, unet_layout(SD14.unet).metas)
@@ -206,7 +318,8 @@ def main_path(torch, K):
     K.reset_launch_counts()
     img, lat, secs = run(KernelConfig())
     counts = K.launch_counts()
-    want = {"flash_attn": STEPS * 5 + 1, "fused_edit": STEPS * 22}
+    want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * 5 + 1,
+            "fused_edit": STEPS * 22}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, expected {want}")
     if img.shape != (2, 512, 512, 3) or img.dtype != torch.uint8:
@@ -225,6 +338,150 @@ def main_path(torch, K):
           f"included), {secs_ref:.3f} s with kernels=None")
     return counts, {"s_per_pair": secs, "s_per_pair_materialized": secs_ref,
                     "latent_drift": drift}
+
+
+def inversion_path(torch, K, pipe):
+    """``invert`` at SD-1.4 full width and the reference defaults, on a
+    seeded 512² uint8 image. The launch counts follow from the layout and
+    the inner iterations n the early stop left: every forward without
+    gradient runs K1 at the 5 self sites of 4096 pixels; in an inner
+    iteration's forward the site before the first cross site does not see
+    the embedding and runs K1 too, while the 4 after it run K3, and the
+    backward runs K4's two passes at each of those 4."""
+    import numpy as np
+
+    from p2p_tpu_torch.engine import inversion as inv
+    from p2p_tpu_torch.models.config import unet_layout
+
+    metas = unet_layout(pipe.config.unet).metas
+    first_cross = min(m.layer_idx for m in metas if m.is_cross)
+    big = [m for m in metas if not m.is_cross and m.pixels >= 2048]
+    n_const = sum(1 for m in big if m.layer_idx < first_cross)
+    n_grad = len(big) - n_const
+    cfg = pipe.config
+    size = cfg.image_size
+    image = np.random.default_rng(IMAGE_SEED).integers(0, 256, (size, size, 3),
+                                                       dtype=np.uint8)
+    # Time the two phases of invert() by wrapping the module functions it
+    # calls.
+    seconds = {}
+
+    def timed(name):
+        fn = getattr(inv, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            return out
+        setattr(inv, name, wrapper)
+        return fn
+
+    originals = {name: timed(name) for name in ("ddim_invert", "null_optimize")}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        art = inv.invert(pipe, image, PROMPTS[0], num_steps=STEPS,
+                         num_inner_steps=INNER_STEPS, early_stop_epsilon=EARLY_STOP,
+                         device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(inv, name, fn)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(art.inner_steps)
+    want = {**dict.fromkeys(counts, 0),
+            # inversion, cond + advance forwards, inner forwards, VAE encode
+            # and the reconstruction's decode
+            "flash_attn": STEPS * len(big) + STEPS * 2 * len(big) + n * n_const + 2,
+            "flash_attn_residuals": n * n_grad,
+            "flash_attn_bwd_dq": n * n_grad,
+            "flash_attn_bwd_dkv": n * n_grad}
+    if counts != want:
+        raise RuntimeError(f"inversion launch counts {counts}, expected {want}")
+    if art.uncond_embeddings.shape != (STEPS, 1, cfg.text.max_length,
+                                       cfg.text.hidden_dim):
+        raise RuntimeError(f"embeddings {art.uncond_embeddings.shape}")
+    if not (np.isfinite(art.uncond_embeddings).all() and np.isfinite(art.x_t).all()):
+        raise RuntimeError("non-finite inversion output")
+    stats = {"s_total": total, "s_ddim_invert": seconds["ddim_invert"],
+             "s_null_optimize": seconds["null_optimize"], "inner_iterations": n,
+             "ms_per_inner_iteration": seconds["null_optimize"] / n * 1e3,
+             "inner_steps": art.inner_steps, "max_memory_allocated": peak,
+             "launches": counts}
+    print(f"inversion: {total:.3f} s ({seconds['ddim_invert']:.3f} s DDIM "
+          f"inversion, {seconds['null_optimize']:.3f} s optimization); {n} inner "
+          f"iterations, {stats['ms_per_inner_iteration']:.2f} ms each (cond and "
+          f"advance forwards included); peak memory {peak / 2**30:.2f} GiB")
+    print(f"inversion: launches {counts}; inner steps {art.inner_steps}")
+    return art, image, stats
+
+
+def replay_path(torch, K, pipe, art, image):
+    """The replay edit of the inversion: Replace + LocalBlend + Reweight with
+    the optimized embeddings, with and without the kernels, and the source
+    row's reconstruction against the raw ``""`` uncond."""
+    from p2p_tpu_torch import KernelConfig, make_controller, text2image
+    from p2p_tpu_torch.kernels.dispatch import site_variant
+    from p2p_tpu_torch.models import vae as vae_mod
+    from p2p_tpu_torch.models.config import unet_layout
+
+    prompts = [art.prompt, PROMPTS[1]]
+    ctrl = make_controller(prompts, True, 0.8, 0.4, pipe.tokenizer, STEPS,
+                           blend_words=BLEND_WORDS, equalizer_params=EQUALIZER)
+    metas = unet_layout(pipe.config.unet).metas
+    variants = [site_variant(KernelConfig(), ctrl, m) for m in metas]
+    n_k2 = variants.count("fused-edit")
+    n_k1 = sum(1 for v, m in zip(variants, metas) if v == "flash" and m.pixels >= 2048)
+    x_t = torch.from_numpy(art.x_t).cuda()
+    ups = torch.from_numpy(art.uncond_embeddings).cuda()
+
+    def run(kernels, uncond):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img, _, _, lat = text2image(pipe, prompts, ctrl, num_steps=STEPS, latent=x_t,
+                                    uncond_embeddings=uncond, kernels=kernels,
+                                    device="cuda", return_latents=True)
+        torch.cuda.synchronize()
+        return img, lat, time.perf_counter() - t
+
+    K.reset_launch_counts()
+    img, lat, secs = run(KernelConfig(), ups)
+    counts = K.launch_counts()
+    want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * n_k1 + 1,
+            "fused_edit": STEPS * n_k2}
+    if counts != want:
+        raise RuntimeError(f"replay launch counts {counts}, expected {want}")
+    size = pipe.config.image_size
+    if img.shape != (2, size, size, 3) or not bool(torch.isfinite(lat).all()):
+        raise RuntimeError(f"replay images {tuple(img.shape)} or non-finite latents")
+    _, lat_ref, secs_ref = run(None, ups)
+    drift = max_err(torch, lat, lat_ref)
+    if drift > DRIFT_TOL:
+        raise RuntimeError(f"replay latents drift {drift} > {DRIFT_TOL}")
+    _, lat_raw, _ = run(KernelConfig(), None)
+    with torch.no_grad():
+        target = vae_mod.encode(pipe.vae, pipe.config.vae, torch.from_numpy(
+            image.astype("float32") / 127.5 - 1.0)[None].cuda())
+    err_opt = torch.mean((lat[0] - target[0]) ** 2).item()
+    err_raw = torch.mean((lat_raw[0] - target[0]) ** 2).item()
+    if not err_opt < err_raw:
+        raise RuntimeError(f"null-text invariant: source-row MSE to the encoded "
+                           f"image {err_opt} with the optimized embeddings, "
+                           f"{err_raw} with the raw uncond")
+    print(f"replay: launches {counts} ({n_k1} K1 and {n_k2} K2 sites); latents "
+          f"max|Δ| vs kernels=None {drift:.3g}; {secs:.3f} s with kernels, "
+          f"{secs_ref:.3f} s without")
+    print(f"replay: source-row MSE to the encoded image {err_opt:.6g} optimized "
+          f"vs {err_raw:.6g} raw uncond")
+    return counts, {"s_per_pair": secs, "s_per_pair_materialized": secs_ref,
+                    "latent_drift": drift, "mse_optimized": err_opt,
+                    "mse_raw": err_raw}
 
 
 def kernel_entry(name, source, replaces, launches, rows):
@@ -257,18 +514,51 @@ def main() -> int:
     print(f"build: {sorted(report)} in {time.perf_counter() - t0:.1f} s")
     for name, r in sorted(report.items()):
         for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:
+                line = line.split("Function properties for")[1]
+            elif "registers" not in line and "spill" not in line:
+                continue
+            print(f"  {name}: {line.strip()}")
+
+    from p2p_tpu_torch import random_pipeline
+    from p2p_tpu_torch.models.config import SD14
+    from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
     k1 = k1_phases(torch, K, F)
     k2 = k2_phases(torch, K)
-    counts, path = main_path(torch, K)
+    k34 = k34_phases(torch, K, F)
+    t0 = time.perf_counter()
+    pipe = random_pipeline(SD14, HashWordTokenizer(), "cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"SD-1.4 random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
+    counts, path = main_path(torch, K, pipe)
+    art, image, inversion = inversion_path(torch, K, pipe)
+    replay_counts, replay = replay_path(torch, K, pipe, art, image)
+    inv_counts = inversion["launches"]
     result = {"kernels": [
         kernel_entry("flash_attn", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:330", counts["flash_attn"], k1),
         kernel_entry("fused_edit", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", counts["fused_edit"], k2),
-    ], "main_path": path, "card": card}
+        kernel_entry("flash_attn_residuals", "p2p_tpu_torch/csrc/flash_attn.cu",
+                     "p2p_tpu/models/nn.py:343", inv_counts["flash_attn_residuals"],
+                     [k34["K3"]]),
+        kernel_entry("flash_attn_bwd_dq", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "p2p_tpu/models/nn.py:308", inv_counts["flash_attn_bwd_dq"],
+                     [k34["K4_dq"]]),
+        kernel_entry("flash_attn_bwd_dkv", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "p2p_tpu/models/nn.py:308", inv_counts["flash_attn_bwd_dkv"],
+                     [k34["K4_dkv"]]),
+    ], "main_path": path, "inversion": inversion, "replay": replay,
+        "replay_launches": replay_counts, "card": card}
+    # K3 + K4 per inner iteration from the kernel phase's times, against the
+    # measured inner iteration.
+    n_grad = inv_counts["flash_attn_residuals"] // inversion["inner_iterations"]
+    k34_ms = n_grad * sum(k34[k]["ms"] for k in ("K3", "K4_dq", "K4_dkv"))
+    inversion["k3_k4_ms_per_inner_iteration"] = k34_ms
+    print(f"inversion: K3 + K4 at {n_grad} sites take {k34_ms:.3f} ms of the "
+          f"{inversion['ms_per_inner_iteration']:.2f} ms inner iteration "
+          f"({100 * k34_ms / inversion['ms_per_inner_iteration']:.1f} %)")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -1,8 +1,14 @@
-"""Command line of the PyTorch port: ``generate`` and ``edit``.
+"""Command line of the PyTorch port: ``generate``, ``edit``, ``invert`` and
+``replay``.
 
     python -m p2p_tpu_torch edit --preset sd14 --mode replace \\
         --source "a cat riding a bicycle" --target "a dog riding a bicycle" \\
         --steps 50 --seeds 8191 --kernels --out-dir out/
+    python -m p2p_tpu_torch invert --preset sd14 --image cat.png \\
+        --prompt "a cat riding a bicycle" --artifact out/inversion.npz
+    python -m p2p_tpu_torch replay --preset sd14 --artifact out/inversion.npz \\
+        --mode replace --target "a dog riding a bicycle" --blend-words cat,dog \\
+        --equalizer dog=2 --kernels --out-dir out/
 
 Weights are random (from fixed seeds) and prompts go through the hash-word
 tokenizer: loading a checkpoint needs the CLIP BPE tokenizer, which is not
@@ -24,10 +30,9 @@ import numpy as np
 # JAX CLI flags the port does not support yet, with what they need.
 _UNSUPPORTED = {
     "batch_seeds": ("--batch-seeds", "the batched sweep engine"),
+    "batch_targets": ("--batch-targets", "the batched sweep engine"),
     "gate": ("--gate", "phase-gated sampling"),
     "schedule": ("--schedule", "reuse schedules"),
-    "blend_words": ("--blend-words", "LocalBlend"),
-    "equalizer": ("--equalizer", "Reweight"),
     "attn_maps": ("--attn-maps", "attention-map visualization"),
     "checkpoint": ("--checkpoint", "the CLIP BPE tokenizer"),
 }
@@ -70,6 +75,35 @@ def _kernels(args):
     return KernelConfig() if args.kernels else None
 
 
+def _parse_equalizer(spec):
+    """``"word=scale,..."`` → ``{"words": (...), "values": (...)}``."""
+    if not spec:
+        return None
+    words, values = [], []
+    for part in spec.split(","):
+        w, v = part.split("=")
+        words.append(w.strip())
+        values.append(float(v))
+    return {"words": tuple(words), "values": tuple(values)}
+
+
+def _make_controller(args, prompts, tokenizer, num_steps):
+    """The controller of ``edit`` and ``replay``, assembled as the JAX
+    CLI's ``controller_from_opts`` does: ``--blend-words`` ("cat,dog")
+    selects the same words in every prompt."""
+    from .controllers.factory import make_controller
+
+    blend = args.blend_words.split(",") if args.blend_words else None
+    return make_controller(
+        prompts, is_replace_controller=args.mode == "replace",
+        cross_replace_steps=args.cross_steps,
+        self_replace_steps=args.self_steps, tokenizer=tokenizer,
+        num_steps=num_steps,
+        blend_words=None if blend is None else [blend] * len(prompts),
+        equalizer_params=_parse_equalizer(args.equalizer),
+        blend_resolution=args.blend_resolution)
+
+
 def cmd_generate(args) -> int:
     from .engine.sampler import text2image
 
@@ -92,17 +126,12 @@ def cmd_generate(args) -> int:
 
 
 def cmd_edit(args) -> int:
-    from .controllers.factory import make_controller
     from .engine.sampler import text2image
 
     _reject_unsupported(args)
     pipe = _build_pipeline(args)
     prompts = [args.source, args.target]
-    controller = make_controller(
-        prompts, is_replace_controller=args.mode == "replace",
-        cross_replace_steps=args.cross_steps,
-        self_replace_steps=args.self_steps, tokenizer=pipe.tokenizer,
-        num_steps=args.steps)
+    controller = _make_controller(args, prompts, pipe.tokenizer, args.steps)
     out_dir = args.out_dir or os.path.join("logs", time.strftime("%y%m%d_%H%M%S"))
     for seed in args.seeds:
         common = dict(num_steps=args.steps, guidance_scale=args.guidance,
@@ -119,6 +148,58 @@ def cmd_edit(args) -> int:
     return 0
 
 
+def cmd_invert(args) -> int:
+    from .engine.inversion import invert, load_image
+
+    _reject_unsupported(args)
+    pipe = _build_pipeline(args)
+    image = load_image(args.image, size=pipe.config.image_size)
+    art = invert(pipe, image, args.prompt, num_steps=args.steps,
+                 guidance_scale=args.guidance,
+                 num_inner_steps=args.inner_steps, device=pipe.device)
+    os.makedirs(os.path.dirname(args.artifact) or ".", exist_ok=True)
+    art.save(args.artifact)
+    print(f"wrote {args.artifact}")
+    if not args.quiet:
+        print(f"inner steps per outer step: {art.inner_steps}")
+    if args.out_dir:
+        _save(art.image_gt, os.path.join(args.out_dir, "gt.png"))
+        _save(art.image_rec, os.path.join(args.out_dir, "vae_rec.png"))
+    return 0
+
+
+def cmd_replay(args) -> int:
+    import torch
+
+    from .engine.inversion import InversionArtifact
+    from .engine.sampler import text2image
+
+    _reject_unsupported(args)
+    targets = args.target or []
+    pipe = _build_pipeline(args)
+    art = InversionArtifact.load(args.artifact)
+    out_dir = args.out_dir or "outputs"
+    x_t = torch.from_numpy(art.x_t)
+    ups = torch.from_numpy(art.uncond_embeddings)
+    for i, target in enumerate(targets or [None]):
+        prompts = [art.prompt, target] if target else [art.prompt]
+        controller = (None if target is None else _make_controller(
+            args, prompts, pipe.tokenizer, art.num_steps))
+        img, _, _ = text2image(pipe, prompts, controller,
+                               num_steps=art.num_steps,
+                               guidance_scale=args.guidance, latent=x_t,
+                               uncond_embeddings=ups, kernels=_kernels(args),
+                               device=pipe.device)
+        if i == 0:
+            _save(img[0].cpu().numpy(), os.path.join(out_dir, "reconstruction.png"))
+        if target is not None:
+            name = "edited.png" if len(targets) == 1 else f"edited_{i:02d}.png"
+            _save(img[1].cpu().numpy(), os.path.join(out_dir, name))
+        if not args.quiet:
+            print(f"replay {target!r}: {out_dir}")
+    return 0
+
+
 def _int_list(s: str) -> List[int]:
     return [int(x) for x in s.split(",") if x.strip()]
 
@@ -128,21 +209,37 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
+    def model_opts(sp):
         sp.add_argument("--preset", choices=("tiny", "sd14"), default="tiny")
         sp.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' must be "
                              "asked for)")
         sp.add_argument("--guidance", type=float, default=7.5)
+        sp.add_argument("--quiet", action="store_true")
+        # Accepted only to be rejected with a message (see _UNSUPPORTED).
+        sp.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
+
+    def edit_opts(sp):
+        sp.add_argument("--mode", choices=("replace", "refine"), default="refine")
+        sp.add_argument("--cross-steps", type=float, default=0.8)
+        sp.add_argument("--self-steps", type=float, default=0.4)
+        sp.add_argument("--blend-words", default=None,
+                        help="comma-separated words for LocalBlend masking")
+        sp.add_argument("--equalizer", default=None,
+                        help="word=scale[,word=scale...] reweighting")
+        sp.add_argument("--blend-resolution", type=int, default=16)
+        sp.add_argument("--kernels", action="store_true",
+                        help="run the edited sites through the fused-edit kernel")
+        sp.add_argument("--attn-maps", default=None, help=argparse.SUPPRESS)
+
+    def common(sp):
+        model_opts(sp)
         sp.add_argument("--steps", type=int, default=50)
         sp.add_argument("--scheduler", choices=("ddim",), default="ddim",
                         help="only DDIM is ported")
         sp.add_argument("--seeds", type=_int_list, default=[8191],
                         help="comma-separated seed sweep")
         sp.add_argument("--negative-prompt", default=None)
-        sp.add_argument("--quiet", action="store_true")
-        # Accepted only to be rejected with a message (see _UNSUPPORTED).
-        sp.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
         sp.add_argument("--batch-seeds", action="store_true", help=argparse.SUPPRESS)
         sp.add_argument("--gate", default=None, help=argparse.SUPPRESS)
         sp.add_argument("--schedule", default=None, help=argparse.SUPPRESS)
@@ -155,18 +252,35 @@ def build_parser() -> argparse.ArgumentParser:
 
     e = sub.add_parser("edit", help="prompt-to-prompt edit with seed sweep")
     common(e)
+    edit_opts(e)
     e.add_argument("--source", required=True, help="source prompt")
     e.add_argument("--target", required=True, help="edited prompt")
     e.add_argument("--out-dir", default=None)
-    e.add_argument("--mode", choices=("replace", "refine"), default="refine")
-    e.add_argument("--cross-steps", type=float, default=0.8)
-    e.add_argument("--self-steps", type=float, default=0.4)
-    e.add_argument("--kernels", action="store_true",
-                   help="run the edited sites through the fused-edit kernel")
-    e.add_argument("--blend-words", default=None, help=argparse.SUPPRESS)
-    e.add_argument("--equalizer", default=None, help=argparse.SUPPRESS)
-    e.add_argument("--attn-maps", default=None, help=argparse.SUPPRESS)
     e.set_defaults(fn=cmd_edit)
+
+    # Inversion is DDIM by construction: no --scheduler or --seeds here.
+    i = sub.add_parser("invert", help="null-text inversion of a real image")
+    model_opts(i)
+    i.add_argument("--steps", type=int, default=50)
+    i.add_argument("--image", required=True)
+    i.add_argument("--prompt", required=True)
+    i.add_argument("--artifact", default="outputs/inversion.npz")
+    i.add_argument("--inner-steps", type=int, default=10)
+    i.add_argument("--out-dir", default=None,
+                   help="also write gt.png / vae_rec.png here")
+    i.set_defaults(fn=cmd_invert)
+
+    # Replay takes its step count from the artifact.
+    r = sub.add_parser("replay", help="edit a previously inverted image")
+    model_opts(r)
+    edit_opts(r)
+    r.add_argument("--artifact", required=True)
+    r.add_argument("--target", action="append", default=None,
+                   help="edited prompt; repeatable for a target sweep "
+                        "(omit for pure reconstruction)")
+    r.add_argument("--out-dir", default=None)
+    r.add_argument("--batch-targets", action="store_true", help=argparse.SUPPRESS)
+    r.set_defaults(fn=cmd_replay)
     return p
 
 

@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .blend import BlendParams, apply_local_blend
 from .edit import EditParams, edit_cross_attention, edit_self_attention
 
 
@@ -75,6 +76,14 @@ class AttnLayout:
     def stored_metas(self) -> Tuple[AttnMeta, ...]:
         return tuple(m for m in self.metas if m.store_slot is not None)
 
+    def blend_metas(self, resolution: int = 16) -> Tuple[AttnMeta, ...]:
+        """The stored cross sites at ``resolution``: the maps LocalBlend
+        reads (for SD-1.4 the reference's ``down_cross[2:4] +
+        up_cross[:3]``)."""
+        return tuple(m for m in self.metas
+                     if m.is_cross and m.resolution == resolution
+                     and m.store_slot is not None)
+
 
 def build_layout(specs: Sequence[Tuple],
                  store_cfg: StoreConfig = StoreConfig()) -> AttnLayout:
@@ -100,13 +109,14 @@ class Controller:
     """A prompt-to-prompt controller.
 
     The all-None controller is the identity (EmptyControl); ``store=True``
-    alone is AttentionStore. ``blend`` (LocalBlend) and
-    ``spatial_stop_inject`` (SpatialReplace) are not ported yet: the latent
-    hook raises when it meets them.
+    alone is AttentionStore; ``blend`` (LocalBlend) composites latents from
+    the stored cross maps after every step, so it needs the store as
+    ``store`` does. ``spatial_stop_inject`` (SpatialReplace) is not ported
+    yet: the latent hook raises when it meets it.
     """
 
     edit: Optional[EditParams] = None
-    blend: Optional[object] = None
+    blend: Optional[BlendParams] = None
     spatial_stop_inject: Optional[int] = None
     store: bool = False
 
@@ -121,9 +131,9 @@ class Controller:
 
     def to(self, device) -> "Controller":
         """A copy with every tensor on ``device``."""
-        if self.edit is None:
-            return self
-        return dataclasses.replace(self, edit=self.edit.to(device))
+        return dataclasses.replace(
+            self, edit=None if self.edit is None else self.edit.to(device),
+            blend=None if self.blend is None else self.blend.to(device))
 
 
 def controller_touches(controller: Optional[Controller], meta: AttnMeta) -> bool:
@@ -190,12 +200,12 @@ def apply_attention_control(controller: Optional[Controller], meta: AttnMeta,
 def apply_step_callback(controller: Optional[Controller], layout: AttnLayout,
                         state: StoreState, x_t: torch.Tensor, step: int
                         ) -> torch.Tensor:
-    """Post-scheduler-step latent hook. SpatialReplace injection and
-    LocalBlend compositing are not ported yet and raise."""
+    """Post-scheduler-step latent hook: LocalBlend compositing. SpatialReplace
+    injection is not ported yet and raises."""
     if controller is None or controller.is_identity:
         return x_t
     if controller.spatial_stop_inject is not None:
         raise NotImplementedError("SpatialReplace is not ported to p2p_tpu_torch yet")
     if controller.blend is not None:
-        raise NotImplementedError("LocalBlend is not ported to p2p_tpu_torch yet")
+        x_t = apply_local_blend(controller.blend, layout, state, x_t, step)
     return x_t

@@ -1,9 +1,15 @@
-// K1: flash attention forward, non-causal, unmasked, f32 in and out.
+// K1 and K3: flash attention forward, non-causal, unmasked, f32 in and out.
 //
-// Replaces the JAX package's `flash_attention_tpu` (p2p_tpu/models/nn.py:330),
+// K1 replaces the JAX package's `flash_attention_tpu` (p2p_tpu/models/nn.py:330),
 // the library Pallas TPU kernel behind `nn.fused_attention`. On the main path
 // it runs at the U-Net's 64x64-pixel self-attention sites, q/k/v
 // (4, 8, 4096, 40), and at the VAE decoder's mid attention, (2, 1, 4096, 512).
+// K3 replaces `flash_attention_residuals` (p2p_tpu/models/nn.py:343), the same
+// Pallas kernel with `save_residuals=True`, which is also its forward rule
+// under differentiation: the same kernel, asked with non-null `m` and `l`,
+// also writes each row's final max m and sum l = sum_j exp(s_j - m), the
+// residuals the backward (flash_attn_bwd.cu) recomputes probabilities from.
+// On the null-text inversion path it runs at (1, 8, 4096, 40).
 //
 // One block owns BQ query rows of one (batch, head). It streams the keys and
 // values through shared memory BK rows at a time with an online softmax
@@ -28,7 +34,8 @@ namespace {
 template <int D, int BQ, int BK, int TRS, int TRO>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int sq,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int sq,
                  int sk, float scale) {
   constexpr int LDQ = D + 1;
   constexpr int LDS = BK + 1;
@@ -90,11 +97,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
   }
   out.store(o + bh * sq * D, q0, sq, l_s);
+  if (m_out != nullptr) {
+    for (int i = threadIdx.x; i < BQ && q0 + i < sq; i += kThreads) {
+      m_out[bh * sq + q0 + i] = m_s[i];
+      l_out[bh * sq + q0 + i] = l_s[i];
+    }
+  }
 }
 
 template <int D, int BQ, int BK, int TRS, int TRO>
-int launch(const float* q, const float* k, const float* v, float* o, int bh,
-           int sq, int sk, float scale, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o, float* m,
+           float* l, int bh, int sq, int sk, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((BQ + BK) * (D + 1) + BQ * (BK + 1) + 3 * BQ);
   auto kern = flash_fwd_kernel<D, BQ, BK, TRS, TRO>;
@@ -102,29 +115,30 @@ int launch(const float* q, const float* k, const float* v, float* o, int bh,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, bh);
-  kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, sq, sk, scale);
+  kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, m, l, sq, sk, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (bh, sq, d), k and v: (bh, sk, d), o: (bh, sq, d), all contiguous f32.
-// Returns a cudaError_t (0 on success).
+// m and l: (bh, sq) f32, both null (K1) or both non-null (K3: the row max
+// and row sum are written too). Returns a cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v,
-                                  float* o, int bh, int sq, int sk, int d,
-                                  float scale, void* stream) {
+                                  float* o, float* m, float* l, int bh, int sq,
+                                  int sk, int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 40:
-      return launch<40, 64, 64, 16, 16>(q, k, v, o, bh, sq, sk, scale, s);
+      return launch<40, 64, 64, 16, 16>(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 64:
-      return launch<64, 64, 64, 16, 8>(q, k, v, o, bh, sq, sk, scale, s);
+      return launch<64, 64, 64, 16, 8>(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 80:
-      return launch<80, 64, 64, 16, 8>(q, k, v, o, bh, sq, sk, scale, s);
+      return launch<80, 64, 64, 16, 8>(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 160:
-      return launch<160, 64, 32, 16, 4>(q, k, v, o, bh, sq, sk, scale, s);
+      return launch<160, 64, 32, 16, 4>(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 512:
-      return launch<512, 32, 32, 16, 4>(q, k, v, o, bh, sq, sk, scale, s);
+      return launch<512, 32, 32, 16, 4>(q, k, v, o, m, l, bh, sq, sk, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

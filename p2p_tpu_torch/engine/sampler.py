@@ -6,7 +6,9 @@ DDIM timesteps whose body is the JAX package's scan body
 (classifier-free guidance by batch doubling, one U-Net call on
 ``[uncond; cond]``, the controller hook at every attention site, the
 scheduler step, the latent hook); the store state is carried explicitly.
-All prompts of an edit group start from one latent.
+All prompts of an edit group start from one latent. A null-text replay
+substitutes each step's optimized uncond embedding
+(``uncond_embeddings``, from ``engine.inversion.invert``).
 
 Entry points run on CUDA unless ``device="cpu"`` is asked for; with no GPU
 and no ``device`` they raise. On CUDA, TF32 is switched off for matmuls and
@@ -118,10 +120,13 @@ def init_latent(latent: Optional[torch.Tensor], shape: Tuple[int, ...],
 def denoise(pipe: Pipeline, context: torch.Tensor, latents: torch.Tensor,
             controller: Optional[Controller], *, num_steps: int,
             guidance_scale: float, scheduler: str = "ddim",
-            layout: Optional[AttnLayout] = None, kernels=None
+            layout: Optional[AttnLayout] = None, kernels=None,
+            uncond_embeddings: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, StoreState]:
     """The denoising loop. ``context``: ``(2B, L, D)`` as
-    ``[uncond; cond]``; ``latents``: ``(B, H, W, C)``. Returns the final
+    ``[uncond; cond]``; ``latents``: ``(B, H, W, C)``;
+    ``uncond_embeddings``: ``(T, 1, L, D)`` or None — step i's row replaces
+    the uncond half of the context, broadcast over B. Returns the final
     latents and the store state."""
     cfg = pipe.config
     layout = layout or unet_layout(cfg.unet)
@@ -131,8 +136,12 @@ def denoise(pipe: Pipeline, context: torch.Tensor, latents: torch.Tensor,
     state = (init_store_state(layout, b, device=latents.device)
              if controller is not None and controller.needs_store else ())
     for step, t in enumerate(sched.timesteps.tolist()):
+        ctx = context
+        if uncond_embeddings is not None:
+            u = uncond_embeddings[step].to(context.dtype)
+            ctx = torch.cat([u.expand_as(context[:b]), context[b:]], dim=0)
         latent_in = torch.cat([latents] * 2, dim=0)
-        eps, state = apply_unet(pipe.unet, cfg.unet, latent_in, t, context,
+        eps, state = apply_unet(pipe.unet, cfg.unet, latent_in, t, ctx,
                                 layout=layout, controller=controller,
                                 state=state, step=step, kernels=kernels)
         eps_uncond, eps_text = eps[:b], eps[b:]
@@ -153,6 +162,7 @@ def text2image(
     scheduler: str = "ddim",
     latent: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    uncond_embeddings: Optional[torch.Tensor] = None,
     negative_prompt: Optional[str] = None,
     layout: Optional[AttnLayout] = None,
     dtype=torch.float32,
@@ -172,11 +182,16 @@ def text2image(
     ``torch.Generator``; seed 0 on the device when None). ``kernels`` (a
     ``kernels.KernelConfig``) sends covered, kernel-compilable edited sites
     to the fused-edit kernel. ``negative_prompt`` replaces the ``""``
-    unconditional text. Phase gating (``gate``) and reuse schedules
-    (``schedule``) are not ported yet and raise."""
+    unconditional text. ``uncond_embeddings`` ``(T, 1, L, D)`` (a null-text
+    inversion's, T = ``num_steps``, DDIM only) replaces it step by step
+    instead. Phase gating (``gate``) and reuse schedules (``schedule``) are
+    not ported yet and raise."""
     if gate is not None or schedule is not None:
         raise NotImplementedError("gate / schedule are not ported to "
                                   "p2p_tpu_torch yet")
+    if negative_prompt and uncond_embeddings is not None:
+        raise ValueError("negative_prompt and uncond_embeddings are mutually "
+                         "exclusive (null-text already optimized the uncond)")
     if dtype != torch.float32:
         raise NotImplementedError("p2p_tpu_torch samples in float32 only")
     device = resolve_device(device)
@@ -187,6 +202,14 @@ def text2image(
         controller = controller.to(device)
     cfg = pipe.config
     num_steps = num_steps or cfg.num_steps
+    if uncond_embeddings is not None:
+        if scheduler != "ddim":
+            raise ValueError("uncond_embeddings require scheduler='ddim'")
+        if uncond_embeddings.shape[0] != num_steps:
+            raise ValueError(
+                f"uncond_embeddings has {uncond_embeddings.shape[0]} steps, "
+                f"sampling uses {num_steps}")
+        uncond_embeddings = torch.as_tensor(uncond_embeddings, device=device)
     gs = cfg.guidance_scale if guidance_scale is None else guidance_scale
     if generator is None and latent is None:
         generator = torch.Generator(device).manual_seed(0)
@@ -200,7 +223,8 @@ def text2image(
         latents, state = denoise(pipe, context, latents, controller,
                                  num_steps=num_steps, guidance_scale=gs,
                                  scheduler=scheduler, layout=layout,
-                                 kernels=kernels)
+                                 kernels=kernels,
+                                 uncond_embeddings=uncond_embeddings)
         images = vae_mod.to_uint8(vae_mod.decode(pipe.vae, cfg.vae, latents))
     out = (images, x_t, state if return_store else ())
     return out + (latents,) if return_latents else out

@@ -1,14 +1,21 @@
-"""K1: flash attention forward — wrapper, plain version and launch count.
+"""K1 and K3: flash attention forward — wrappers, plain versions and launch
+counts.
 
-Replaces the JAX package's ``flash_attention_tpu`` (``p2p_tpu/models/nn.py``,
-the Pallas TPU library kernel behind ``fused_attention``). The CUDA kernel is
-``csrc/flash_attn.cu``: non-causal, unmasked ``softmax(q·kᵀ·scale)·v`` in f32,
-blockwise with an online softmax, so the (S, S) scores never exist in device
-memory. Main-path shapes: the U-Net's 64²-pixel self sites, q/k/v
-``(4, 8, 4096, 40)``, and the VAE decoder's mid attention ``(2, 1, 4096, 512)``.
+K1 (:func:`flash_attention`) replaces the JAX package's
+``flash_attention_tpu`` (``p2p_tpu/models/nn.py``, the Pallas TPU library
+kernel behind ``fused_attention``); K3 (:func:`flash_attention_residuals`)
+replaces ``flash_attention_residuals``, the same Pallas kernel with
+``save_residuals=True`` — also its forward rule under differentiation. Both
+launch the CUDA kernel of ``csrc/flash_attn.cu``: non-causal, unmasked
+``softmax(q·kᵀ·scale)·v`` in f32, blockwise with an online softmax, so the
+(S, S) scores never exist in device memory; K3 also writes each row's max
+``m`` and sum ``l`` of ``exp(s − m)``. Main-path shapes: K1 at the U-Net's
+64²-pixel self sites, q/k/v ``(4, 8, 4096, 40)``, and the VAE's mid
+attention ``(2, 1, 4096, 512)``; K3 at ``(1, 8, 4096, 40)`` in the null-text
+inversion's gradient steps.
 
-On a CPU tensor the wrapper runs :func:`flash_attention_plain`; on a CUDA
-tensor it launches the kernel or raises.
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises. Each wrapper counts its own launches.
 """
 
 from __future__ import annotations
@@ -36,44 +43,99 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=-2).to(v.dtype)
 
 
+def flash_attention_residuals_plain(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, scale: float,
+                                    chunk: int = 1024):
+    """``(out, l, m)`` materialized, chunked over queries: ``m`` the row
+    max of ``s = q·kᵀ·scale``, ``l`` the row sum of ``exp(s − m)``, both
+    f32 ``(B, H, Sq)`` — the JAX library's residual convention."""
+    outs, ls, ms = [], [], []
+    for s0 in range(0, q.shape[-2], chunk):
+        s = torch.einsum("bhqd,bhkd->bhqk", q[..., s0:s0 + chunk, :].float(),
+                         k.float()) * scale
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(dim=-1)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l[..., None])
+        ls.append(l)
+        ms.append(m)
+    return (torch.cat(outs, dim=-2).to(v.dtype), torch.cat(ls, dim=-1),
+            torch.cat(ms, dim=-1))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attn")
     fn = lib.p2p_flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """``softmax(q·kᵀ·scale)·v`` for q ``(B, H, Sq, D)``, k/v
-    ``(B, H, Sk, D)``, f32, contiguous."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
+def check_operands(what: str, tensors, head_dims) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte-aligned f32 CUDA
+    tensor on the first one's device and the head dim (last axis of the
+    first) is one the kernel is instantiated for."""
+    dev = tensors[0][1].device
+    for name, t in tensors:
+        if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be contiguous, 16-byte "
+                             f"aligned f32 on {dev}, got {t.dtype} on {t.device}")
+    d = tensors[0][1].shape[-1]
+    if d not in head_dims:
+        raise ValueError(f"{what}: head dim {d} not in {head_dims}")
+
+
+def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float, residuals: bool):
+    """One launch of ``p2p_flash_attn_fwd``: ``(out, l, m)``, with ``l`` and
+    ``m`` None unless ``residuals``."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
+        raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be contiguous f32 "
-                             f"on {q.device}, got {t.dtype} on {t.device}")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in "
-                         f"{SUPPORTED_HEAD_DIMS}")
+    check_operands(what, (("q", q), ("k", k), ("v", v)), SUPPORTED_HEAD_DIMS)
     lib = _lib()
     out = torch.empty_like(q)
+    l = m = None
+    if residuals:
+        m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     status = lib.p2p_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         b * h, sq, sk, d, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, status, "p2p_flash_attn_fwd")
+    return out, l, m
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """K1: ``softmax(q·kᵀ·scale)·v`` for q ``(B, H, Sq, D)``, k/v
+    ``(B, H, Sk, D)``, f32, contiguous."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    out, _, _ = _launch("flash_attention", q, k, v, scale, residuals=False)
     flash_attention.launches += 1
     return out
 
 
+def flash_attention_residuals(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, scale: float):
+    """K3: ``(out, l, m)`` — K1's output plus each row's softmax sum ``l``
+    and max ``m``, f32 ``(B, H, Sq)``; the forward the backward
+    (:mod:`.flash_bwd`) pairs with."""
+    if q.device.type == "cpu":
+        return flash_attention_residuals_plain(q, k, v, scale)
+    out = _launch("flash_attention_residuals", q, k, v, scale, residuals=True)
+    flash_attention_residuals.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+flash_attention_residuals.launches = 0

@@ -97,14 +97,21 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """Attention for sites the controller never reads. q, k, v:
     (B, heads, S, D). Unmasked self-attention with S ≥ 2048 (the U-Net's
-    64²-pixel sites, the VAE's mid block) runs flash attention (K1:
-    ``kernels.flash``, the CUDA kernel on a CUDA tensor, its plain version
-    on a CPU one); everything else is the materialized einsum."""
+    64²-pixel sites, the VAE's mid block) runs flash attention (the CUDA
+    kernels on a CUDA tensor, their plain versions on a CPU one): the
+    forward-only K1, or — when autograd records and q, k or v requires
+    grad, as in the null-text inversion's gradient — K3 forward with K4 as
+    its backward (``kernels.flash_bwd.FlashAttentionFunction``). Everything
+    else is the materialized einsum."""
     s_q, s_k = q.shape[-2], k.shape[-2]
     if mask is None and s_q == s_k and s_q >= FLASH_MIN_SEQ:
         from ..kernels.flash import flash_attention
+        from ..kernels.flash_bwd import FlashAttentionFunction
 
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               scale)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFunction.apply(q, k, v, scale)
+        return flash_attention(q, k, v, scale)
     probs = attention_probs(q, k, scale, mask).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)

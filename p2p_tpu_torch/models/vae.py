@@ -1,15 +1,17 @@
-"""KL autoencoder decode — the PyTorch counterpart of the decode half of
-``p2p_tpu/models/vae.py``.
+"""KL autoencoder — the PyTorch counterpart of ``p2p_tpu/models/vae.py``.
 
 ``decode`` takes latents ``(B, h, w, 4)`` (NHWC, as the JAX package) to an
-image ``(B, H, W, 3)`` in [-1, 1]; inside it runs NCHW. The mid block's
-single-head self-attention over all pixels (S = 4096, d = 512 at SD-1.4's
-64² latent) is the flash kernel K1.
+image ``(B, H, W, 3)`` in [-1, 1]; ``encode`` / ``encode_moments`` take an
+image back to latents (null-text inversion's starting point); inside both
+run NCHW. The mid blocks' single-head self-attention over all pixels
+(S = 4096, d = 512 at SD-1.4's 64² latent) is the flash kernel K1.
 """
 
 from __future__ import annotations
 
 import torch
+
+import torch.nn.functional as F
 
 from . import nn
 from .checkpoint import StateDict
@@ -44,12 +46,54 @@ def _apply_attn(sd: StateDict, p: str, x: torch.Tensor, groups: int) -> torch.Te
     return x + out
 
 
-def decode(sd: StateDict, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
-    """latents (B, h, w, 4) → image (B, H, W, 3) in [-1, 1], the input
-    scaled by 1 / ``scaling_factor`` first."""
+def _check_kind(cfg: VAEConfig) -> None:
     if cfg.kind != "kl":
         raise NotImplementedError(f"VAE kind {cfg.kind!r} is not ported to "
                                   "p2p_tpu_torch")
+
+
+def _encoder_trunk(sd: StateDict, cfg: VAEConfig, image: torch.Tensor) -> torch.Tensor:
+    """image (B, H, W, 3) → quant_conv output, NCHW: conv_in → down blocks
+    (diffusers' asymmetric pad of one row and one column, bottom and right,
+    before each stride-2 conv) → mid → norm/conv_out → quant_conv."""
+    g = cfg.groups
+    h = nn.conv2d(image.permute(0, 3, 1, 2), sd["encoder.conv_in.weight"],
+                  sd["encoder.conv_in.bias"])
+    for lvl in range(len(cfg.channel_mults)):
+        for j in range(cfg.layers_per_block):
+            h = _apply_resnet(sd, f"encoder.down_blocks.{lvl}.resnets.{j}", h, g)
+        down = f"encoder.down_blocks.{lvl}.downsamplers.0.conv"
+        if down + ".weight" in sd:
+            h = nn.conv2d(F.pad(h, (0, 1, 0, 1)), sd[down + ".weight"],
+                          sd[down + ".bias"], stride=2, padding=0)
+    h = _apply_resnet(sd, "encoder.mid_block.resnets.0", h, g)
+    h = _apply_attn(sd, "encoder.mid_block.attentions.0", h, g)
+    h = _apply_resnet(sd, "encoder.mid_block.resnets.1", h, g)
+    h = nn.silu(nn.group_norm(h, sd["encoder.conv_norm_out.weight"],
+                              sd["encoder.conv_norm_out.bias"], g))
+    h = nn.conv2d(h, sd["encoder.conv_out.weight"], sd["encoder.conv_out.bias"])
+    return nn.conv2d(h, sd["quant_conv.weight"], sd["quant_conv.bias"])
+
+
+def encode_moments(sd: StateDict, cfg: VAEConfig, image: torch.Tensor):
+    """image (B, H, W, 3) in [-1, 1] → the posterior's ``(mean, logvar)``,
+    each ``(B, H/8, W/8, latent_channels)`` (NHWC), logvar clipped to
+    [-30, 20]."""
+    _check_kind(cfg)
+    mean, logvar = _encoder_trunk(sd, cfg, image).permute(0, 2, 3, 1).chunk(2, dim=-1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def encode(sd: StateDict, cfg: VAEConfig, image: torch.Tensor) -> torch.Tensor:
+    """Deterministic latent: the posterior mean times ``scaling_factor``."""
+    mean, _ = encode_moments(sd, cfg, image)
+    return mean * cfg.scaling_factor
+
+
+def decode(sd: StateDict, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
+    """latents (B, h, w, 4) → image (B, H, W, 3) in [-1, 1], the input
+    scaled by 1 / ``scaling_factor`` first."""
+    _check_kind(cfg)
     g = cfg.groups
     h = (latents / cfg.scaling_factor).permute(0, 3, 1, 2)
     h = nn.conv2d(h, sd["post_quant_conv.weight"], sd["post_quant_conv.bias"])

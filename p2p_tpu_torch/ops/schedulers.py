@@ -3,8 +3,9 @@
 
 A :class:`DiffusionSchedule` holds the precomputed constants (computed in
 float64 with numpy, stored as f32 as the JAX package stores them); the step
-math runs in f32. ``set_alpha_to_one=False`` semantics: the final step uses
-``alphas_cumprod[0]``, not 1.
+math runs in f32: :func:`ddim_step` samples, :func:`ddim_next_step` inverts
+(null-text inversion). ``set_alpha_to_one=False`` semantics: the final step
+uses ``alphas_cumprod[0]``, not 1.
 """
 
 from __future__ import annotations
@@ -129,3 +130,17 @@ def ddim_step(sched: DiffusionSchedule, eps: torch.Tensor, t: int,
         pred_x0 = pred_x0.clamp(-1.0, 1.0)
     direction = torch.sqrt(1.0 - a_prev) * e
     return (torch.sqrt(a_prev) * pred_x0 + direction).to(sample.dtype)
+
+
+def ddim_next_step(sched: DiffusionSchedule, eps: torch.Tensor, t: int,
+                   sample: torch.Tensor) -> torch.Tensor:
+    """One DDIM *inversion* step x_t → x_{t+Δ}, in f32: the closed-form
+    ascent null-text inversion records its trajectory with."""
+    cur_t = min(int(t) - sched.step_size, sched.num_train_timesteps - 1)
+    a_t = _alpha_at(sched, cur_t)
+    a_next = _alpha_at(sched, t)
+    x = sample.float()
+    e = eps.float()
+    pred_x0 = (x - torch.sqrt(1.0 - a_t) * e) / torch.sqrt(a_t)
+    direction = torch.sqrt(1.0 - a_next) * e
+    return (torch.sqrt(a_next) * pred_x0 + direction).to(sample.dtype)

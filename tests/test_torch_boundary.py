@@ -52,7 +52,7 @@ def test_imports_with_jax_unavailable():
             "    sys.modules[m] = None\n"
             "import p2p_tpu_torch, p2p_tpu_torch.cli, p2p_tpu_torch.kernels\n"
             "import p2p_tpu_torch.models.unet, p2p_tpu_torch.models.vae\n"
-            "import p2p_tpu_torch.engine.sampler\n"
+            "import p2p_tpu_torch.engine.sampler, p2p_tpu_torch.engine.inversion\n"
             "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -87,7 +87,6 @@ def test_cli_rejects_unsupported_flags():
 
     base = ["edit", "--source", "a cat", "--target", "a dog", "--device", "cpu"]
     for extra in (["--batch-seeds"], ["--gate", "auto"], ["--schedule", "s.json"],
-                  ["--blend-words", "cat"], ["--equalizer", "dog=2"],
                   ["--attn-maps", "maps"], ["--checkpoint", "ckpt"]):
         with pytest.raises(SystemExit, match="not supported by p2p_tpu_torch"):
             main(base + extra)

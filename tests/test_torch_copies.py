@@ -87,12 +87,15 @@ def test_factory_parameters(mode):
         assert (got is None) == (want is None)
         if want is not None:
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError):
-        pfactory.make_controller(prompts, tokenizer=pt, blend_words=[["car"]] * 2, **kw)
-    with pytest.raises(NotImplementedError):
-        pfactory.make_controller(prompts, tokenizer=pt,
-                                 equalizer_params={"words": ("car",), "values": (2.0,)},
-                                 **kw)
+    # LocalBlend and Reweight on top: the same masks and equalizer.
+    extra = dict(blend_words=[["car"]] * 2,
+                 equalizer_params={"words": ("car",), "values": (2.0,)})
+    jc = jfactory.make_controller(prompts, tokenizer=jt, **extra, **kw)
+    pc = pfactory.make_controller(prompts, tokenizer=pt, **extra, **kw)
+    np.testing.assert_array_equal(pc.edit.equalizer.numpy(), np.asarray(jc.edit.equalizer))
+    np.testing.assert_array_equal(pc.blend.alpha_layers.numpy(),
+                                  np.asarray(jc.blend.alpha_layers))
+    assert (pc.edit.kind, pc.blend.start_blend) == (jc.edit.kind, int(jc.blend.start_blend))
 
 
 def test_configs_and_layouts():
