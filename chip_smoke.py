@@ -16,10 +16,15 @@ Phases, each of which raises on failure:
 2. kernel phases: K1 (flash attention), K2 (fused edit), K3 (flash
    forward with residuals) and K4 (flash backward, a dk/dv and a dq pass)
    against their plain versions on the same card inputs, max|Δ| ≤ 1e-4 in
-   f32 with TF32 off (K3/K4: relative to the plain output's largest
-   magnitude); each timed with CUDA events beside its plain version, its
-   roofline bound and, where one exists, a PyTorch call computing the same
-   function (``scaled_dot_product_attention`` forward, or its backward);
+   f32 with TF32 off for the kernels on the CUDA cores and ≤ 1e-5 for
+   those on the tensor cores in 3xTF32 (K1 and K3 at d = 512, K4; K3/K4
+   relative to the plain output's largest magnitude), K1 at d = 512 also
+   at ragged lengths; K1 at d = 512 and both K4 passes give bitwise-equal
+   outputs from two launches; each timed with CUDA events beside its plain
+   version, its roofline bound on the units it runs on (``bound_ms``; both
+   the f32 CUDA-core and the 3xTF32 tensor-core figures beside it) and,
+   where one exists, a PyTorch call computing the same function
+   (``scaled_dot_product_attention`` forward, or its backward);
 3. the main path: random SD-1.4 weights at full width from seed 0, 512²,
    2 prompts, DDIM 50 steps, CFG 7.5, an ``attention_replace`` edit
    (store off) with ``kernels=KernelConfig()``; the launch counts must be
@@ -28,7 +33,9 @@ Phases, each of which raises on failure:
 4. the inversion path: ``invert`` of a seeded 512² image at the reference
    defaults (50 steps, 10 inner steps, early stop 1e-5, CFG 7.5); the
    launch counts must be exactly what the layout and the inner-iteration
-   counts give (see ``inversion_path``) and every embedding finite;
+   counts give (see ``inversion_path``), K1's key-split merge once per
+   d = 512 call that splits its keys on this card, and every embedding
+   finite;
 5. the replay edit of that artifact (Replace + LocalBlend + Reweight) with
    ``kernels=KernelConfig()`` (exact K1/K2 counts), with ``kernels=None``
    (latents within 1e-2) and with the raw ``""`` uncond: the source row must
@@ -49,6 +56,10 @@ import sys
 import time
 
 KERNEL_TOL = 1e-4      # kernel vs plain version, f32, same inputs
+# The same for the kernels on the tensor cores in 3xTF32 (K1 and K3 at
+# d = 512, K4): they keep f32 accuracy, and this limit fails one TF32 pass
+# (tests/test_torch_tf32.py) or one f32 accumulator over a 4096-long sum.
+TC_TOL = 1e-5
 DRIFT_TOL = 1e-2       # fused-edit run vs materialized run, final latents
 STEPS = 50
 PROMPTS = ["a cat riding a bicycle", "a dog riding a bicycle"]
@@ -58,16 +69,32 @@ IMAGE_SEED = 0         # the inverted image, uint8 noise from numpy
 BLEND_WORDS = (("cat",), ("dog",))
 EQUALIZER = {"words": ("dog",), "values": (2.0,)}
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores (the kernels use
-# no TF32) and HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, TF32 on the
+# tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def bound(flops: float, nbytes: float, tensor_cores: bool) -> dict:
+    """The least time for ``flops`` f32 operations and ``nbytes`` of memory
+    traffic on the units the kernel runs them on (``bound_ms``, with what
+    bounds it): the tensor cores in 3xTF32, three TF32 products per
+    product, when ``tensor_cores``, else the CUDA cores in f32. Both
+    figures stand beside it (``bound_3xtf32_ms``, ``bound_f32_ms``)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_f32, t_tc = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS
+    t_ops = t_tc if tensor_cores else t_f32
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_on": "tensor cores, 3xTF32" if tensor_cores else "CUDA cores, f32",
+            "bound_f32_ms": max(t_f32, t_bytes) * 1e3,
+            "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
+
+
+def bound_text(r: dict) -> str:
+    return (f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_on']}); "
+            f"f32 {r['bound_f32_ms']:.4f}, 3xTF32 {r['bound_3xtf32_ms']:.4f} ms")
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -97,10 +124,27 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+def path_counts(K) -> dict:
+    """Every wrapper's launch count, and K1's key-split merges."""
+    return {**K.launch_counts(), "flash_merge": K.merge_launches()}
+
+
+def vae_merges(torch, pipe, batch: int) -> int:
+    """Merge launches of one K1 call at the VAE's mid attention, d = 512:
+    1 when the card's SM count makes the call split its keys, else 0."""
+    from p2p_tpu_torch.kernels.flash import D512_TILE, key_splits
+
+    tiles = -(-pipe.config.latent_size ** 2 // D512_TILE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return int(key_splits(tiles * batch, tiles, sms) > 1)
+
+
 def k1_phases(torch, K, F):
     """K1 at the U-Net 64² self sites and the VAE mid attention: batch 4 and
     2 on the edit paths, batch 1 in the inversion (its forwards without
-    gradient, and the VAE encode)."""
+    gradient, and the VAE encode); then the d = 512 kernel at ragged
+    lengths (S = 4100, and Sq = 300 with Sk = 70), with K3's residuals, and
+    twice at the path shape for bitwise-equal outputs."""
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
     for shape, iters in (((4, 8, 4096, 40), 20), ((2, 1, 4096, 512), 10),
@@ -108,22 +152,39 @@ def k1_phases(torch, K, F):
         b, h, s, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         scale = d ** -0.5
+        tol = TC_TOL if d == 512 else KERNEL_TOL
         out = K.flash_attention(q, k, v, scale)
         torch.cuda.synchronize()
         err = max_err(torch, out, K.flash_attention_plain(q, k, v, scale))
-        if err > KERNEL_TOL:
-            raise RuntimeError(f"K1 {shape}: max|Δ| {err} > {KERNEL_TOL}")
-        bound_ms, bound_by = bound(4.0 * b * h * s * s * d, 4 * 4 * q.numel())
+        if err > tol:
+            raise RuntimeError(f"K1 {shape}: max|Δ| {err} > {tol}")
+        if d == 512 and not torch.equal(out, K.flash_attention(q, k, v, scale)):
+            raise RuntimeError(f"K1 {shape}: two launches differ")
         rows.append({
             "shape": list(shape), "max_abs_err": err,
             "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), iters),
             "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 3),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale), iters),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+            **bound(4.0 * b * h * s * s * d, 4 * 4 * q.numel(), d == 512)})
         print(f"K1 {shape}: max|Δ| {err:.3g}  kernel {rows[-1]['ms']:.4f} ms  "
               f"plain {rows[-1]['plain_ms']:.4f} ms  sdpa "
-              f"{rows[-1]['library_ms']:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+              f"{rows[-1]['library_ms']:.4f} ms  {bound_text(rows[-1])}")
+    d = 512
+    for sq, sk in ((4100, 4100), (300, 70)):
+        q = torch.randn((1, 1, sq, d), generator=gen, device="cuda")
+        k, v = (torch.randn((1, 1, sk, d), generator=gen, device="cuda") for _ in range(2))
+        out = K.flash_attention(q, k, v, d ** -0.5)
+        got = K.flash_attention_residuals(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        want = K.flash_attention_residuals_plain(q, k, v, d ** -0.5)
+        err = max_err(torch, out, want[0])
+        if err > TC_TOL:
+            raise RuntimeError(f"K1 d=512 Sq={sq} Sk={sk}: max|Δ| {err} > {TC_TOL}")
+        for name, a, w in zip(("out", "l", "m"), got, want):
+            rel_err(torch, a, w, f"K3 d=512 Sq={sq} Sk={sk} {name}", TC_TOL)
+        print(f"K1 d=512 Sq={sq} Sk={sk}: max|Δ| {err:.3g}; with residuals "
+              "within tolerance")
     return rows
 
 
@@ -185,26 +246,26 @@ def k2_phases(torch, K):
                               if spec.has_transform else 0)
         flops = meta.heads * (3 * 2 * qk + edit_row)
         nbytes = 4 * (2 * q.numel() + 2 * k.numel() + sum(t.numel() for t in ops.values()))
-        bound_ms, bound_by = bound(flops, nbytes)
         iters = 20 if meta.pixels >= 1024 else 50
         rows.append({
             "site": label, "max_abs_err": err,
             "ms": cuda_ms(torch, lambda: K.edit_attention(q, k, v, scale, spec, ops), iters),
             "plain_ms": cuda_ms(torch, lambda: K.edit_attention_plain(
                 q, k, v, scale, spec, ops), 5),
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by})
+            "library_ms": None, **bound(flops, nbytes, False)})
         print(f"K2 {label}: max|Δ| {err:.3g}  kernel {rows[-1]['ms']:.4f} ms  "
-              f"plain {rows[-1]['plain_ms']:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+              f"plain {rows[-1]['plain_ms']:.4f} ms  {bound_text(rows[-1])}")
     return rows
 
 
-def rel_err(torch, got, want, what: str) -> float:
+def rel_err(torch, got, want, what: str, tol: float = KERNEL_TOL) -> float:
     """max|Δ| of a kernel output against its plain version, raising past
-    KERNEL_TOL relative to the plain version's largest magnitude."""
+    ``tol`` relative to the plain version's largest magnitude."""
     err = max_err(torch, got, want)
     top = want.abs().max().item()
-    if err > KERNEL_TOL * top:
-        raise RuntimeError(f"{what}: max|Δ| {err} > {KERNEL_TOL} x {top}")
+    print(f"  {what}: max|Δ| {err:.3g}, {err / top:.3g} of the largest magnitude")
+    if err > tol * top:
+        raise RuntimeError(f"{what}: max|Δ| {err} > {tol} x {top}")
     return err
 
 
@@ -231,8 +292,16 @@ def k34_phases(torch, K, F):
     torch.cuda.synchronize()
     p_dk, p_dv = K.flash_attention_bwd_dkv_plain(q, k, v, do, p_l, p_m, di, scale)
     p_dq = K.flash_attention_bwd_dq_plain(q, k, v, do, p_l, p_m, di, scale)
-    err_dkv = max(rel_err(torch, dk, p_dk, "K4 dk"), rel_err(torch, dv, p_dv, "K4 dv"))
-    err_dq = rel_err(torch, dq, p_dq, "K4 dq")
+    err_dkv = max(rel_err(torch, dk, p_dk, "K4 dk", TC_TOL),
+                  rel_err(torch, dv, p_dv, "K4 dv", TC_TOL))
+    err_dq = rel_err(torch, dq, p_dq, "K4 dq", TC_TOL)
+    # Deterministic: a second launch of each pass gives the same bits.
+    dk2, dv2 = K.flash_attention_bwd_dkv(q, k, v, do, p_l, p_m, di, scale)
+    dq2 = K.flash_attention_bwd_dq(q, k, v, do, p_l, p_m, di, scale)
+    for name, a, b2 in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        if not torch.equal(a, b2):
+            raise RuntimeError(f"K4 {name}: two launches differ")
+    print("K4: two launches give bitwise-equal dq, dk and dv")
 
     # Ragged edges: a last tile part-full (S = 4100), and Sq != Sk.
     for sq, sk in ((4100, 4100), (300, 70)):
@@ -247,7 +316,8 @@ def k34_phases(torch, K, F):
                                             want[2], scale)
         torch.cuda.synchronize()
         for name, a, w in zip(("out", "l", "m", "dq", "dk", "dv"), got, want):
-            rel_err(torch, a, w, f"K3/K4 Sq={sq} Sk={sk} {name}")
+            rel_err(torch, a, w, f"K3/K4 Sq={sq} Sk={sk} {name}",
+                    TC_TOL if name.startswith("d") else KERNEL_TOL)
     print("K3/K4 ragged edges (Sq, Sk) = (4100, 4100), (300, 70): within tolerance")
 
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -258,34 +328,31 @@ def k34_phases(torch, K, F):
     stats = 4 * b * h * s                    # bytes of one (B, H, S) f32 tensor
     flops = 2.0 * b * h * s * s * d          # one S x S x d product
     rows = {}
-    bound_ms, bound_by = bound(2 * flops, 4 * n + 2 * stats)
     rows["K3"] = {"shape": list(shape), "max_abs_err": err3,
                   "ms": cuda_ms(torch, lambda: K.flash_attention_residuals(q, k, v, scale), 20),
                   "plain_ms": cuda_ms(torch, lambda: K.flash_attention_residuals_plain(
                       q, k, v, scale), 3),
                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                       q, k, v, scale=scale), 20),
-                  "bound_ms": bound_ms, "bound_by": bound_by}
-    bound_ms, bound_by = bound(4 * flops, 6 * n + 3 * stats)
+                  **bound(2 * flops, 4 * n + 2 * stats, False)}
     rows["K4_dkv"] = {"shape": list(shape), "max_abs_err": err_dkv,
                       "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
                           q, k, v, do, p_l, p_m, di, scale), 10),
                       "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
                           q, k, v, do, p_l, p_m, di, scale), 3),
-                      "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-    bound_ms, bound_by = bound(3 * flops, 5 * n + 3 * stats)
+                      "library_ms": sdpa_bwd_ms,
+                      **bound(4 * flops, 6 * n + 3 * stats, True)}
     rows["K4_dq"] = {"shape": list(shape), "max_abs_err": err_dq,
                      "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
                          q, k, v, do, p_l, p_m, di, scale), 10),
                      "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
                          q, k, v, do, p_l, p_m, di, scale), 3),
-                     "library_ms": sdpa_bwd_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+                     "library_ms": sdpa_bwd_ms,
+                     **bound(3 * flops, 5 * n + 3 * stats, True)}
     for name, r in rows.items():
         print(f"{name} {shape}: max|Δ| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  "
               f"plain {r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{bound_text(r)}")
     return rows
 
 
@@ -317,9 +384,9 @@ def main_path(torch, K, pipe):
     run(KernelConfig())                      # warm-up: cuDNN and allocator
     K.reset_launch_counts()
     img, lat, secs = run(KernelConfig())
-    counts = K.launch_counts()
+    counts = path_counts(K)
     want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * 5 + 1,
-            "fused_edit": STEPS * 22}
+            "fused_edit": STEPS * 22, "flash_merge": vae_merges(torch, pipe, 2)}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, expected {want}")
     if img.shape != (2, 512, 512, 3) or img.dtype != torch.uint8:
@@ -392,7 +459,7 @@ def inversion_path(torch, K, pipe):
     finally:
         for name, fn in originals.items():
             setattr(inv, name, fn)
-    counts = K.launch_counts()
+    counts = path_counts(K)
     peak = torch.cuda.max_memory_allocated()
     n = sum(art.inner_steps)
     want = {**dict.fromkeys(counts, 0),
@@ -401,7 +468,8 @@ def inversion_path(torch, K, pipe):
             "flash_attn": STEPS * len(big) + STEPS * 2 * len(big) + n * n_const + 2,
             "flash_attn_residuals": n * n_grad,
             "flash_attn_bwd_dq": n * n_grad,
-            "flash_attn_bwd_dkv": n * n_grad}
+            "flash_attn_bwd_dkv": n * n_grad,
+            "flash_merge": 2 * vae_merges(torch, pipe, 1)}
     if counts != want:
         raise RuntimeError(f"inversion launch counts {counts}, expected {want}")
     if art.uncond_embeddings.shape != (STEPS, 1, cfg.text.max_length,
@@ -452,9 +520,9 @@ def replay_path(torch, K, pipe, art, image):
 
     K.reset_launch_counts()
     img, lat, secs = run(KernelConfig(), ups)
-    counts = K.launch_counts()
+    counts = path_counts(K)
     want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * n_k1 + 1,
-            "fused_edit": STEPS * n_k2}
+            "fused_edit": STEPS * n_k2, "flash_merge": vae_merges(torch, pipe, 2)}
     if counts != want:
         raise RuntimeError(f"replay launch counts {counts}, expected {want}")
     size = pipe.config.image_size
@@ -484,13 +552,15 @@ def replay_path(torch, K, pipe, art, image):
                     "mse_raw": err_raw}
 
 
-def kernel_entry(name, source, replaces, launches, rows):
+def kernel_entry(name, source, replaces, launches, rows, **extra):
     head = rows[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "geometries": rows}
+            "bound_on": head["bound_on"], "bound_f32_ms": head["bound_f32_ms"],
+            "bound_3xtf32_ms": head["bound_3xtf32_ms"],
+            "library_ms": head["library_ms"], **extra, "geometries": rows}
 
 
 def main() -> int:
@@ -537,7 +607,13 @@ def main() -> int:
     inv_counts = inversion["launches"]
     result = {"kernels": [
         kernel_entry("flash_attn", "p2p_tpu_torch/csrc/flash_attn.cu",
-                     "p2p_tpu/models/nn.py:330", counts["flash_attn"], k1),
+                     "p2p_tpu/models/nn.py:330", counts["flash_attn"], k1,
+                     merge_launches={"main_path": counts["flash_merge"],
+                                     "inversion": inv_counts["flash_merge"],
+                                     "replay": replay_counts["flash_merge"]},
+                     note="launches counts wrapper calls; a d = 512 call that "
+                          "splits its keys also launches flash_merge_kernel "
+                          "(merge_launches), and its ms includes the merge"),
         kernel_entry("fused_edit", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", counts["fused_edit"], k2),
         kernel_entry("flash_attn_residuals", "p2p_tpu_torch/csrc/flash_attn.cu",

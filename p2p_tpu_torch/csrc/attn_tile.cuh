@@ -1,7 +1,8 @@
-// Shared tile routines of the port's attention kernels (flash_attn.cu,
-// fused_edit.cu). f32 throughout, on the CUDA cores: the JAX reference runs
-// these products at full f32 precision, which the tensor cores only reach
-// through TF32 (about three decimal digits), so they are not used here.
+// Shared tile routines of the port's attention kernels on the CUDA cores
+// (flash_attn.cu at d = 40, 64, 80, 160; fused_edit.cu). f32 throughout: the
+// JAX reference runs these products at full f32 precision, which one TF32
+// tensor-core pass (about three decimal digits) does not reach; the kernels
+// that do use the tensor cores take three passes (mma_tf32.cuh).
 //
 // A block has kThreads threads and works on a tile of BQ query rows held in
 // shared memory, against key/value tiles of BK rows streamed through shared

@@ -17,240 +17,384 @@
 //   dv = p^T do,  dp = do v^T,  ds = p * (dp - di),
 //   dk = scale * ds^T q,  dq = scale * ds k.
 //
-// Two kernels, as the JAX library has, and no atomics: every output element
-// is summed by one thread in a fixed order, so the result is the same from
-// run to run (the null-text Adam loop amplifies run-to-run noise).
-//  - dkv: one block per (bh, key tile). The K and V tiles stay in shared
-//    memory and dK, dV accumulate in registers while the block walks over
-//    every query tile.
-//  - dq: one block per (bh, query tile). The Q and dO tiles stay in shared
-//    memory and dQ accumulates in registers while the block walks over every
-//    key tile.
-// Ragged edges: rows past sq or sk are loaded as zeros; a key past sk scores
-// -inf (p = 0), and a query row past sq gets lse = +inf (p = 0) and di = 0,
-// so no -inf - -inf is ever formed and nothing past the edge is stored.
-//
-// Bound: per head the dkv pass does four products of 2*S^2*d flops and the
-// dq pass three, against some 8*S*d*4 bytes of inputs: far above the card's
-// flops per byte, so the f32 rate of the CUDA cores bounds both (about
-// 67 TFLOP/s on an H100 SXM; TF32 tensor cores are not used, see
-// attn_tile.cuh). Each shared-memory operand feeds several FMAs through the
-// register tiles of attn_tile.cuh.
-#include "attn_tile.cuh"
+// Every product runs on the tensor cores in 3xTF32 (mma_tf32.cuh), which
+// keeps f32 accuracy at three TF32 products per product; the work, seven
+// products of 2*S^2*d flops per head, bounds both kernels. Two kernels, as
+// the JAX library has, and no atomics: every output element is accumulated
+// by one thread in a fixed order, so two runs give bitwise-equal gradients
+// (the null-text Adam step g / (|g| + 1e-8) amplifies run-to-run noise).
+// 128 threads, four warps, each owning 16 rows of the block's output tile:
+//  - dkv: one block per (bh, 64-key tile). It walks over the query tiles,
+//    double-buffered by cp.async, and computes s^T = k q^T and dp^T = v do^T
+//    with keys as rows, so the accumulator fragments of p^T and ds^T are the
+//    A operands of dv += p^T do and dk += ds^T q with no trip through shared
+//    memory (mma_tf32.cuh: a_from_c, load_b_perm).
+//  - dq: one block per (bh, 64-query tile). It walks over the key tiles,
+//    double-buffered, and the fragment of ds is the A operand of dq += ds k.
+// Every tile in shared memory feeds B operands in all four warps, so the
+// block splits it into its TF32 parts once, in place (split_tile), rather
+// than each warp at every read: Q and dO per query tile and K and V once in
+// dkv, K and V per key tile and Q and dO once in dq (113 KB of shared
+// memory; two blocks an SM).
+// The tensor cores' accumulation rounds toward zero, which over a whole
+// 4096-long sum biased the gradients by some 2e-5 of their largest value;
+// each tile's product is therefore summed in its own accumulator and added
+// to the running dk, dv or dq in f32 (2.5e-6). p = exp2(s * scale *
+// log2(e) - lse * log2(e)) takes one MUFU.EX2 per element.
+// Tiles are 64 x 40 in shared memory with row stride 44, which every
+// fragment pattern reads without bank conflicts.
+// Ragged edges: rows past sq or sk are loaded as zeros; a key past sk gets
+// p = 0, and a query row past sq gets lse = +inf (p = 0) and di = 0, so no
+// -inf - -inf is ever formed and nothing past the edge is stored.
+#include <math.h>
+
+#include "mma_tf32.cuh"
 
 using namespace p2p;
 
 namespace {
 
-// lse = m + log l and di of rows [row0, row0 + n) into shared memory; rows
-// past rows_total get lse = +inf and di = 0.
-template <int N>
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* di_s,
-                                               const float* __restrict__ m,
-                                               const float* __restrict__ l,
-                                               const float* __restrict__ di,
-                                               int row0, int rows_total) {
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    const int gr = row0 + i;
-    const bool ok = gr < rows_total;
-    lse_s[i] = ok ? m[gr] + logf(l[gr]) : INFINITY;
-    di_s[i] = ok ? di[gr] : 0.f;
+constexpr int D = 40;
+constexpr int NT = 128;           // four warps
+constexpr int BR = 64;            // rows of a tile (keys or queries)
+constexpr int LD = D + 4;         // ld % 8 == 4: conflict-free fragments
+constexpr int TILE = BR * LD;
+constexpr int NKS = D / 8;        // k-steps and n-tiles over the head dim
+constexpr int NRT = BR / 8;       // n-tiles and k-steps over a 64-row tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// acc[n] = A_w X^T: the warp's 16 rows of A against the 64 rows of X, over
+// the head dim, both split; G n-tiles at a time (G B fragments live in
+// registers).
+template <int G>
+__device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const Split& A,
+                                           const Split& X) {
+#pragma unroll
+  for (int n = 0; n < NRT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks) {
+    FragA a;
+    load_a(a, A.at(ks * 8), LD);
+#pragma unroll
+    for (int n0 = 0; n0 < NRT; n0 += G) {
+      FragB b[G];
+#pragma unroll
+      for (int n = 0; n < G; ++n) load_bt(b[n], X.at((n0 + n) * 8 * LD + ks * 8), LD);
+      mma_3xtf32([&](int ta, int tb) {
+#pragma unroll
+        for (int n = 0; n < G; ++n) mma_tf32(acc[n0 + n], a.x[ta], b[n].x[tb]);
+      });
+    }
   }
 }
 
-// out = scale * acc, rows past rows_total skipped.
-template <int D, int R, int TRO>
-__device__ __forceinline__ void scale_and_store(OutTile<D, R, TRO>& t,
-                                                float scale, float* out,
-                                                int row0, int rows_total) {
+// out += C B for the warp's 16 x 64 accumulator fragments C (as A operands,
+// k permuted) and the split 64 x D tile B. The tile's sum is taken in its own
+// accumulator and added to out in f32: the tensor cores' accumulation
+// rounds toward zero, and over a chain as long as the whole sequence that
+// bias grows to some 2e-5 of the result.
+__device__ __forceinline__ void product_cb(float (&out)[NKS][4],
+                                           const float (&c)[NRT][4], const Split& B) {
+  float tile[NKS][4];
 #pragma unroll
-  for (int i = 0; i < OutTile<D, R, TRO>::RI; ++i)
+  for (int n = 0; n < NKS; ++n)
 #pragma unroll
-    for (int c = 0; c < OutTile<D, R, TRO>::CI; ++c) t.acc[i][c] *= scale;
-  t.store(out, row0, rows_total, nullptr);
+    for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < NRT; ++kt) {
+    FragA a;
+    FragB b[NKS];
+    a_from_c(a, c[kt]);
+#pragma unroll
+    for (int n = 0; n < NKS; ++n) load_b_perm(b[n], B.at(kt * 8 * LD + n * 8), LD);
+    mma_3xtf32([&](int ta, int tb) {
+#pragma unroll
+      for (int n = 0; n < NKS; ++n) mma_tf32(tile[n], a.x[ta], b[n].x[tb]);
+    });
+  }
+#pragma unroll
+  for (int n = 0; n < NKS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] += tile[n][e];
 }
 
-template <int D, int BQ, int BK, int TRS, int TRO>
-__global__ void __launch_bounds__(kThreads)
+// Rows row0 + [0, 16) of out = scale * acc; rows at or past rows_total
+// skipped.
+__device__ __forceinline__ void store_rows(float* __restrict__ out,
+                                           const float (&acc)[NKS][4],
+                                           float scale, int row0, int rows_total) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    if (r >= rows_total) continue;
+#pragma unroll
+    for (int n = 0; n < NKS; ++n)
+      *reinterpret_cast<float2*>(out + (size_t)r * D + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  }
+}
+
+// Raw m, l and di of query rows [row0, row0 + BR) into shared memory (zeros
+// past rows_total), asynchronously.
+__device__ __forceinline__ void cp_async_stats(float* m_s, float* l_s,
+                                               float* di_s, const float* m,
+                                               const float* l, const float* di,
+                                               int row0, int rows_total) {
+  for (int i = threadIdx.x; i < 3 * BR; i += NT) {
+    const int w = i / BR, r = i % BR;
+    const bool ok = row0 + r < rows_total;
+    const float* src = w == 0 ? m : (w == 1 ? l : di);
+    float* dst = w == 0 ? m_s : (w == 1 ? l_s : di_s);
+    cp_async4(dst + r, ok ? src + row0 + r : src, ok);
+  }
+}
+
+// log2 of the softmax denominator, (m + log l) * log2(e), so that
+// p = exp2(s * scale * log2(e) - lse2); +inf for a row past the edge.
+__device__ __forceinline__ float lse2_of(float m, float l, bool ok) {
+  return ok ? m * LOG2E + log2f(l) : INFINITY;
+}
+
+__global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ m, const float* __restrict__ l,
                      const float* __restrict__ di, float* __restrict__ dk,
                      float* __restrict__ dv, int sq, int sk, float scale) {
-  constexpr int LDQ = D + 1;
-  constexpr int LDS = BK + 1;  // S and dP tiles, (BQ, BK)
-  constexpr int LDT = BQ + 1;  // P^T and dS^T tiles, (BK, BQ)
   extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LDQ;
-  float* Qs = Vs + BK * LDQ;
-  float* dOs = Qs + BQ * LDQ;
-  float* Ss = dOs + BQ * LDQ;
-  float* PTs = Ss + BQ * LDS;
-  float* lse_s = PTs + BK * LDT;
-  float* di_s = lse_s + BQ;
+  float* Ks = smem;                 // hi parts in place, lo parts beside
+  float* Kl = Ks + TILE;
+  float* Vs = Kl + TILE;
+  float* Vl = Vs + TILE;
+  float* Qs = Vl + TILE;            // two stages of Q, then two of dO
+  float* dOs = Qs + 2 * TILE;
+  float* Ql = dOs + 2 * TILE;       // lo parts of the current stage
+  float* dOl = Ql + TILE;
+  float* m_s = dOl + TILE;          // two stages each of m, l, di
+  float* l_s = m_s + 2 * BR;
+  float* di_s = l_s + 2 * BR;
+  float* lse_s = di_s + 2 * BR;
 
   const size_t bh = blockIdx.y;
   const float* qb = q + bh * sq * D;
   const float* dob = dout + bh * sq * D;
-  const int k0 = blockIdx.x * BK;
-  const int valid = min(BK, sk - k0);
+  const float* mb = m + bh * sq;
+  const float* lb = l + bh * sq;
+  const float* dib = di + bh * sq;
+  const int k0 = blockIdx.x * BR;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
+  const int w0 = warp * 16;         // the warp's keys within the tile
+  const float scale2 = scale * LOG2E;
 
-  load_rows<D>(Ks, LDQ, k + bh * sk * D, k0, BK, sk);
-  load_rows<D>(Vs, LDQ, v + bh * sk * D, k0, BK, sk);
-  OutTile<D, BK, TRO> dK, dV;  // rows are this block's keys
-  dK.zero();
-  dV.zero();
+  cp_async_rows<D, D, LD, BR, NT>(Ks, k + bh * sk * D, k0, sk);
+  cp_async_rows<D, D, LD, BR, NT>(Vs, v + bh * sk * D, k0, sk);
+  cp_async_rows<D, D, LD, BR, NT>(Qs, qb, 0, sq);
+  cp_async_rows<D, D, LD, BR, NT>(dOs, dob, 0, sq);
+  cp_async_stats(m_s, l_s, di_s, mb, lb, dib, 0, sq);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<BR, D, LD, NT>(Ks, Kl);
+  split_tile<BR, D, LD, NT>(Vs, Vl);
 
-  for (int q0 = 0; q0 < sq; q0 += BQ) {
-    load_rows<D>(Qs, LDQ, qb, q0, BQ, sq);
-    load_rows<D>(dOs, LDQ, dob, q0, BQ, sq);
-    load_row_stats<BQ>(lse_s, di_s, m + bh * sq, l + bh * sq, di + bh * sq, q0, sq);
-    __syncthreads();
-    score_tile<D, BQ, BK, TRS>(Qs, LDQ, Ks, LDQ, Ss, LDS, scale, valid);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK;
-      const int j = i - r * BK;
-      PTs[j * LDT + r] = expf(Ss[r * LDS + j] - lse_s[r]);
+  float dK[NKS][4], dV[NKS][4];
+#pragma unroll
+  for (int n = 0; n < NKS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[n][e] = dV[n][e] = 0.f;
+
+  const int nq = (sq + BR - 1) / BR;
+  for (int it = 0; it < nq; ++it) {
+    const int st = it & 1, q0 = it * BR;
+    if (it > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it is in; stage st ^ 1 and the lo parts are free
     }
-    __syncthreads();
-    // dV += P^T dO while dP = dO V^T overwrites the consumed scores. Keys
-    // past sk read zero rows of V, so their dP is 0 and not -inf.
-    dV.template accumulate<BQ, false>(PTs, LDT, dOs, LDQ, nullptr);
-    score_tile<D, BQ, BK, TRS>(dOs, LDQ, Vs, LDQ, Ss, LDS, 1.f, BK);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK;
-      const int j = i - r * BK;
-      const float p = PTs[j * LDT + r];
-      PTs[j * LDT + r] = p * (Ss[r * LDS + j] - di_s[r]);  // dS^T in place
+    if (it + 1 < nq) {
+      const int nx = st ^ 1, q1 = q0 + BR;
+      cp_async_rows<D, D, LD, BR, NT>(Qs + nx * TILE, qb, q1, sq);
+      cp_async_rows<D, D, LD, BR, NT>(dOs + nx * TILE, dob, q1, sq);
+      cp_async_stats(m_s + nx * BR, l_s + nx * BR, di_s + nx * BR, mb, lb, dib,
+                     q1, sq);
     }
+    cp_async_commit();
+    float* Qt = Qs + st * TILE;
+    float* dOt = dOs + st * TILE;
+    split_tile<BR, D, LD, NT>(Qt, Ql);
+    split_tile<BR, D, LD, NT>(dOt, dOl);
+    if (threadIdx.x < BR)
+      lse_s[threadIdx.x] = lse2_of(m_s[st * BR + threadIdx.x],
+                                   l_s[st * BR + threadIdx.x], q0 + threadIdx.x < sq);
     __syncthreads();
-    dK.template accumulate<BQ, false>(PTs, LDT, Qs, LDQ, nullptr);
-    __syncthreads();
+    const float* dit = di_s + st * BR;
+    const Split Q{Qt, Ql}, dO{dOt, dOl};
+
+    // p^T = exp(scale * k q^T - lse): keys are rows, queries columns.
+    float p[NRT][4], dp[NRT][4];
+    product_nt<4>(p, Split{Ks, Kl}.at(w0 * LD), Q);
+#pragma unroll
+    for (int n = 0; n < NRT; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float lse0 = lse_s[c], lse1 = lse_s[c + 1];
+      p[n][0] = exp2f(p[n][0] * scale2 - lse0);
+      p[n][1] = exp2f(p[n][1] * scale2 - lse1);
+      p[n][2] = exp2f(p[n][2] * scale2 - lse0);
+      p[n][3] = exp2f(p[n][3] * scale2 - lse1);
+    }
+    product_cb(dV, p, dO);
+    // ds^T = p^T * (v do^T - di).
+    product_nt<4>(dp, Split{Vs, Vl}.at(w0 * LD), dO);
+#pragma unroll
+    for (int n = 0; n < NRT; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float di0 = dit[c], di1 = dit[c + 1];
+      dp[n][0] = p[n][0] * (dp[n][0] - di0);
+      dp[n][1] = p[n][1] * (dp[n][1] - di1);
+      dp[n][2] = p[n][2] * (dp[n][2] - di0);
+      dp[n][3] = p[n][3] * (dp[n][3] - di1);
+    }
+    product_cb(dK, dp, Q);
   }
-  scale_and_store(dK, scale, dk + bh * sk * D, k0, sk);
-  scale_and_store(dV, 1.f, dv + bh * sk * D, k0, sk);
+  store_rows(dk + bh * sk * D, dK, scale, k0 + w0, sk);
+  store_rows(dv + bh * sk * D, dV, 1.f, k0 + w0, sk);
 }
 
-template <int D, int BQ, int BK, int TRS, int TRO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ m, const float* __restrict__ l,
                     const float* __restrict__ di, float* __restrict__ dq,
                     int sq, int sk, float scale) {
-  constexpr int LDQ = D + 1;
-  constexpr int LDS = BK + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + BQ * LDQ;
-  float* Ks = dOs + BQ * LDQ;
-  float* Vs = Ks + BK * LDQ;
-  float* Ss = Vs + BK * LDQ;
-  float* dPs = Ss + BQ * LDS;
-  float* lse_s = dPs + BQ * LDS;
-  float* di_s = lse_s + BQ;
+  float* dOs = Qs + TILE;
+  float* Ks = dOs + TILE;           // two stages of K, then two of V
+  float* Vs = Ks + 2 * TILE;
+  float* Ql = Vs + 2 * TILE;        // lo parts; K's and V's of the current stage
+  float* dOl = Ql + TILE;
+  float* Kl = dOl + TILE;
+  float* Vl = Kl + TILE;
+  float* m_s = Vl + TILE;
+  float* l_s = m_s + BR;
+  float* di_s = l_s + BR;
 
   const size_t bh = blockIdx.y;
   const float* kb = k + bh * sk * D;
   const float* vb = v + bh * sk * D;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = warp * 16;         // the warp's queries within the tile
+  const float scale2 = scale * LOG2E;
 
-  load_rows<D>(Qs, LDQ, q + bh * sq * D, q0, BQ, sq);
-  load_rows<D>(dOs, LDQ, dout + bh * sq * D, q0, BQ, sq);
-  load_row_stats<BQ>(lse_s, di_s, m + bh * sq, l + bh * sq, di + bh * sq, q0, sq);
-  OutTile<D, BQ, TRO> dQ;
-  dQ.zero();
-
-  for (int k0 = 0; k0 < sk; k0 += BK) {
-    load_rows<D>(Ks, LDQ, kb, k0, BK, sk);
-    load_rows<D>(Vs, LDQ, vb, k0, BK, sk);
-    __syncthreads();
-    score_tile<D, BQ, BK, TRS>(Qs, LDQ, Ks, LDQ, Ss, LDS, scale, min(BK, sk - k0));
-    score_tile<D, BQ, BK, TRS>(dOs, LDQ, Vs, LDQ, dPs, LDS, 1.f, BK);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK;
-      const int j = i - r * BK;
-      const float p = expf(Ss[r * LDS + j] - lse_s[r]);
-      Ss[r * LDS + j] = p * (dPs[r * LDS + j] - di_s[r]);  // dS in place
-    }
-    __syncthreads();
-    dQ.template accumulate<BK, false>(Ss, LDS, Ks, LDQ, nullptr);
-    __syncthreads();
+  cp_async_rows<D, D, LD, BR, NT>(Qs, q + bh * sq * D, q0, sq);
+  cp_async_rows<D, D, LD, BR, NT>(dOs, dout + bh * sq * D, q0, sq);
+  cp_async_stats(m_s, l_s, di_s, m + bh * sq, l + bh * sq, di + bh * sq, q0, sq);
+  cp_async_rows<D, D, LD, BR, NT>(Ks, kb, 0, sk);
+  cp_async_rows<D, D, LD, BR, NT>(Vs, vb, 0, sk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_tile<BR, D, LD, NT>(Qs, Ql);
+  split_tile<BR, D, LD, NT>(dOs, dOl);
+  // The statistics of the thread's two rows, w0 + g and w0 + g + 8.
+  float lse2[2], dis[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = w0 + g + 8 * h;
+    lse2[h] = lse2_of(m_s[r], l_s[r], q0 + r < sq);
+    dis[h] = di_s[r];
   }
-  scale_and_store(dQ, scale, dq + bh * sq * D, q0, sq);
+
+  float dQ[NKS][4];
+#pragma unroll
+  for (int n = 0; n < NKS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dQ[n][e] = 0.f;
+
+  const int nk = (sk + BR - 1) / BR;
+  for (int it = 0; it < nk; ++it) {
+    const int st = it & 1, key0 = it * BR;
+    if (it > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it is in; stage st ^ 1 is free
+    }
+    if (it + 1 < nk) {
+      cp_async_rows<D, D, LD, BR, NT>(Ks + (st ^ 1) * TILE, kb, key0 + BR, sk);
+      cp_async_rows<D, D, LD, BR, NT>(Vs + (st ^ 1) * TILE, vb, key0 + BR, sk);
+    }
+    cp_async_commit();
+    split_tile<BR, D, LD, NT>(Ks + st * TILE, Kl);
+    split_tile<BR, D, LD, NT>(Vs + st * TILE, Vl);
+    __syncthreads();
+    const Split K{Ks + st * TILE, Kl};
+
+    // p = exp(scale * q k^T - lse), 0 for keys past sk.
+    float p[NRT][4], dp[NRT][4];
+    product_nt<8>(p, Split{Qs + w0 * LD, Ql + w0 * LD}, K);
+#pragma unroll
+    for (int n = 0; n < NRT; ++n) {
+      const int c = key0 + n * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = c + (e & 1) < sk ? exp2f(p[n][e] * scale2 - lse2[e >> 1]) : 0.f;
+    }
+    // ds = p * (do v^T - di).
+    product_nt<8>(dp, Split{dOs + w0 * LD, dOl + w0 * LD}, Split{Vs + st * TILE, Vl});
+#pragma unroll
+    for (int n = 0; n < NRT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = p[n][e] * (dp[n][e] - dis[e >> 1]);
+    product_cb(dQ, dp, K);
+  }
+  store_rows(dq + bh * sq * D, dQ, scale, q0 + w0, sq);
 }
 
-template <int D, int BQ, int BK, int TRS, int TRO>
-int launch_dkv(const float* q, const float* k, const float* v, const float* dout,
-               const float* m, const float* l, const float* di, float* dk,
-               float* dv, int bh, int sq, int sk, float scale,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (BQ + BK) * (D + 1) + BQ * (BK + 1) +
-                                       BK * (BQ + 1) + 2 * BQ);
-  auto kern = flash_bwd_dkv_kernel<D, BQ, BK, TRS, TRO>;
+constexpr size_t DKV_SMEM = sizeof(float) * (10 * TILE + 7 * BR);
+constexpr size_t DQ_SMEM = sizeof(float) * (10 * TILE + 3 * BR);
+
+int launch(const void* kern, size_t smem, dim3 grid, void** args,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((sk + BK - 1) / BK, bh);
-  kern<<<grid, kThreads, smem, stream>>>(q, k, v, dout, m, l, di, dk, dv, sq,
-                                         sk, scale);
-  return cudaGetLastError();
-}
-
-template <int D, int BQ, int BK, int TRS, int TRO>
-int launch_dq(const float* q, const float* k, const float* v, const float* dout,
-              const float* m, const float* l, const float* di, float* dq,
-              int bh, int sq, int sk, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (BQ + BK) * (D + 1) +
-                                       2 * BQ * (BK + 1) + 2 * BQ);
-  auto kern = flash_bwd_dq_kernel<D, BQ, BK, TRS, TRO>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaLaunchKernel(kern, grid, dim3(NT), args, smem, stream);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, bh);
-  kern<<<grid, kThreads, smem, stream>>>(q, k, v, dout, m, l, di, dq, sq, sk,
-                                         scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, dout: (bh, sq, d); k, v: (bh, sk, d); m, l, di: (bh, sq); dk, dv:
-// (bh, sk, d). All contiguous f32. Returns a cudaError_t (0 on success).
+// (bh, sk, d). All contiguous f32; d = 40. Returns a cudaError_t (0 on
+// success).
 extern "C" int p2p_flash_attn_bwd_dkv(const float* q, const float* k,
                                       const float* v, const float* dout,
                                       const float* m, const float* l,
                                       const float* di, float* dk, float* dv,
                                       int bh, int sq, int sk, int d,
                                       float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 40:
-      return launch_dkv<40, 64, 64, 16, 16>(q, k, v, dout, m, l, di, dk, dv, bh,
-                                            sq, sk, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (d != D) return cudaErrorInvalidValue;
+  void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dk, &dv, &sq, &sk, &scale};
+  return launch(reinterpret_cast<const void*>(flash_bwd_dkv_kernel), DKV_SMEM,
+                dim3((sk + BR - 1) / BR, bh), args,
+                static_cast<cudaStream_t>(stream));
 }
 
 // q, dout, dq: (bh, sq, d); k, v: (bh, sk, d); m, l, di: (bh, sq). All
-// contiguous f32. Returns a cudaError_t (0 on success).
+// contiguous f32; d = 40. Returns a cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_bwd_dq(const float* q, const float* k,
                                      const float* v, const float* dout,
                                      const float* m, const float* l,
                                      const float* di, float* dq, int bh,
                                      int sq, int sk, int d, float scale,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 40:
-      return launch_dq<40, 64, 64, 16, 16>(q, k, v, dout, m, l, di, dq, bh, sq,
-                                           sk, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (d != D) return cudaErrorInvalidValue;
+  void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dq, &sq, &sk, &scale};
+  return launch(reinterpret_cast<const void*>(flash_bwd_dq_kernel), DQ_SMEM,
+                dim3((sq + BR - 1) / BR, bh), args,
+                static_cast<cudaStream_t>(stream));
 }

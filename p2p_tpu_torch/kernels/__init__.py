@@ -13,7 +13,9 @@
 
 Each wrapper runs its plain PyTorch version on CPU tensors, launches its
 kernel on CUDA tensors (built on first use by :mod:`.build`) and counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``; K1's and K3's wrappers also count the
+merge kernel their d = 512 calls launch when they split the keys, in
+``<wrapper>.merge_launches`` (:func:`merge_launches`).
 """
 
 from .dispatch import (
@@ -52,10 +54,17 @@ def launch_counts() -> dict:
             "flash_attn_bwd_dkv": flash_attention_bwd_dkv.launches}
 
 
+def merge_launches() -> int:
+    """Launches of K1's key-split merge kernel, by K1's and K3's wrappers."""
+    return flash_attention.merge_launches + flash_attention_residuals.merge_launches
+
+
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
+    flash_attention.merge_launches = 0
     edit_attention.launches = 0
     flash_attention_residuals.launches = 0
+    flash_attention_residuals.merge_launches = 0
     flash_attention_bwd_dq.launches = 0
     flash_attention_bwd_dkv.launches = 0
 
@@ -69,5 +78,6 @@ __all__ = [
     "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
     "flash_attention_bwd_dq_plain", "FlashAttentionFunction",
     "edit_attention", "edit_attention_plain",
-    "fused_site_attention", "launch_counts", "reset_launch_counts",
+    "fused_site_attention", "launch_counts", "merge_launches",
+    "reset_launch_counts",
 ]

@@ -7,7 +7,8 @@ Replaces the JAX library's flash backward, the Pallas kernels
 (``p2p_tpu/models/nn.py``, configured by ``_flash_block_sizes``). The CUDA
 kernels are ``csrc/flash_attn_bwd.cu``: two passes, dk/dv over key tiles
 and dq over query tiles, each recomputing the probabilities from K3's
-residuals ``(l, m)``, deterministic (no atomics). ``di = Σ o·do`` is taken
+residuals ``(l, m)``, every product on the tensor cores in 3xTF32 (f32
+accuracy; :mod:`.tf32` emulates it), deterministic (no atomics). ``di = Σ o·do`` is taken
 in PyTorch here, as the JAX rule takes it outside its kernels. Path shape:
 the U-Net's 64²-pixel self sites under the null-text inversion's gradient,
 ``(1, 8, 4096, 40)``.

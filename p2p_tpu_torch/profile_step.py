@@ -51,7 +51,7 @@ PROFILE_STEPS = 3    # traced steps
 
 # Kernel-name fragments of each class, first match wins.
 CLASSES = (
-    ("K1/K3 flash_attn", ("flash_fwd_kernel",)),
+    ("K1/K3 flash_attn", ("flash_fwd_kernel", "flash_d512_kernel", "flash_merge_kernel")),
     ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel",)),
     ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel",)),
     ("K2 fused_edit", ("fused_edit_kernel",)),
