@@ -16,15 +16,16 @@ Phases, each of which raises on failure:
 2. kernel phases: K1 (flash attention), K2 (fused edit), K3 (flash
    forward with residuals) and K4 (flash backward, a dk/dv and a dq pass)
    against their plain versions on the same card inputs, max|Δ| ≤ 1e-4 in
-   f32 with TF32 off for the kernels on the CUDA cores and ≤ 1e-5 for
-   those on the tensor cores in 3xTF32 (K1 and K3 at d = 512, K4; K3/K4
-   relative to the plain output's largest magnitude), K1 at d = 512 also
-   at ragged lengths; K1 at d = 512 and both K4 passes give bitwise-equal
-   outputs from two launches; each timed with CUDA events beside its plain
-   version, its roofline bound on the units it runs on (``bound_ms``; both
-   the f32 CUDA-core and the 3xTF32 tensor-core figures beside it) and,
-   where one exists, a PyTorch call computing the same function
-   (``scaled_dot_product_attention`` forward, or its backward);
+   f32 with TF32 off for K2, on the CUDA cores, and ≤ 1e-5 for the kernels
+   on the tensor cores in 3xTF32 (K1 and K3 at d = 40 and d = 512, K4;
+   K3/K4 relative to the plain output's largest magnitude), K1 at both head
+   dims also at ragged lengths; K1 at every path shape, K3 and both K4
+   passes give bitwise-equal outputs from two launches; each timed with CUDA
+   events beside its plain version, its roofline bound on the units it runs
+   on (``bound_ms``; both the f32 CUDA-core and the 3xTF32 tensor-core
+   figures beside it) and, where one exists, a PyTorch call computing the
+   same function (``scaled_dot_product_attention`` forward, or its
+   backward); the d = 40 kernel's occupancy (blocks per SM);
 3. the main path: random SD-1.4 weights at full width from seed 0, 512²,
    2 prompts, DDIM 50 steps, CFG 7.5, an ``attention_replace`` edit
    (store off) with ``kernels=KernelConfig()``; the launch counts must be
@@ -57,8 +58,9 @@ import time
 
 KERNEL_TOL = 1e-4      # kernel vs plain version, f32, same inputs
 # The same for the kernels on the tensor cores in 3xTF32 (K1 and K3 at
-# d = 512, K4): they keep f32 accuracy, and this limit fails one TF32 pass
-# (tests/test_torch_tf32.py) or one f32 accumulator over a 4096-long sum.
+# d = 40 and d = 512, K4): they keep f32 accuracy, and this limit fails one
+# TF32 pass (tests/test_torch_tf32.py, tests/test_torch_flash_tc.py) or one
+# f32 accumulator over a 4096-long sum.
 TC_TOL = 1e-5
 DRIFT_TOL = 1e-2       # fused-edit run vs materialized run, final latents
 STEPS = 50
@@ -142,9 +144,9 @@ def vae_merges(torch, pipe, batch: int) -> int:
 def k1_phases(torch, K, F):
     """K1 at the U-Net 64² self sites and the VAE mid attention: batch 4 and
     2 on the edit paths, batch 1 in the inversion (its forwards without
-    gradient, and the VAE encode); then the d = 512 kernel at ragged
-    lengths (S = 4100, and Sq = 300 with Sk = 70), with K3's residuals, and
-    twice at the path shape for bitwise-equal outputs."""
+    gradient, and the VAE encode), each twice for bitwise-equal outputs;
+    then both kernels at ragged lengths (S = 4100, and Sq = 300 with
+    Sk = 70), the d = 512 one also with K3's residuals."""
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
     for shape, iters in (((4, 8, 4096, 40), 20), ((2, 1, 4096, 512), 10),
@@ -152,13 +154,12 @@ def k1_phases(torch, K, F):
         b, h, s, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         scale = d ** -0.5
-        tol = TC_TOL if d == 512 else KERNEL_TOL
         out = K.flash_attention(q, k, v, scale)
         torch.cuda.synchronize()
         err = max_err(torch, out, K.flash_attention_plain(q, k, v, scale))
-        if err > tol:
-            raise RuntimeError(f"K1 {shape}: max|Δ| {err} > {tol}")
-        if d == 512 and not torch.equal(out, K.flash_attention(q, k, v, scale)):
+        if err > TC_TOL:
+            raise RuntimeError(f"K1 {shape}: max|Δ| {err} > {TC_TOL}")
+        if not torch.equal(out, K.flash_attention(q, k, v, scale)):
             raise RuntimeError(f"K1 {shape}: two launches differ")
         rows.append({
             "shape": list(shape), "max_abs_err": err,
@@ -166,10 +167,19 @@ def k1_phases(torch, K, F):
             "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 3),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale), iters),
-            **bound(4.0 * b * h * s * s * d, 4 * 4 * q.numel(), d == 512)})
+            **bound(4.0 * b * h * s * s * d, 4 * 4 * q.numel(), True)})
         print(f"K1 {shape}: max|Δ| {err:.3g}  kernel {rows[-1]['ms']:.4f} ms  "
               f"plain {rows[-1]['plain_ms']:.4f} ms  sdpa "
               f"{rows[-1]['library_ms']:.4f} ms  {bound_text(rows[-1])}")
+    for sq, sk in ((4100, 4100), (300, 70)):
+        q = torch.randn((1, 2, sq, 40), generator=gen, device="cuda")
+        k, v = (torch.randn((1, 2, sk, 40), generator=gen, device="cuda") for _ in range(2))
+        out = K.flash_attention(q, k, v, 40 ** -0.5)
+        torch.cuda.synchronize()
+        err = max_err(torch, out, K.flash_attention_plain(q, k, v, 40 ** -0.5))
+        if err > TC_TOL:
+            raise RuntimeError(f"K1 d=40 Sq={sq} Sk={sk}: max|Δ| {err} > {TC_TOL}")
+        print(f"K1 d=40 Sq={sq} Sk={sk}: max|Δ| {err:.3g}")
     d = 512
     for sq, sk in ((4100, 4100), (300, 70)):
         q = torch.randn((1, 1, sq, d), generator=gen, device="cuda")
@@ -258,7 +268,7 @@ def k2_phases(torch, K):
     return rows
 
 
-def rel_err(torch, got, want, what: str, tol: float = KERNEL_TOL) -> float:
+def rel_err(torch, got, want, what: str, tol: float) -> float:
     """max|Δ| of a kernel output against its plain version, raising past
     ``tol`` relative to the plain version's largest magnitude."""
     err = max_err(torch, got, want)
@@ -282,8 +292,12 @@ def k34_phases(torch, K, F):
     out, l, m = K.flash_attention_residuals(q, k, v, scale)
     torch.cuda.synchronize()
     p_out, p_l, p_m = K.flash_attention_residuals_plain(q, k, v, scale)
-    err3 = max(rel_err(torch, out, p_out, "K3 out"), rel_err(torch, l, p_l, "K3 l"),
-               rel_err(torch, m, p_m, "K3 m"))
+    err3 = max(rel_err(torch, out, p_out, "K3 out", TC_TOL),
+               rel_err(torch, l, p_l, "K3 l", TC_TOL),
+               rel_err(torch, m, p_m, "K3 m", TC_TOL))
+    again = K.flash_attention_residuals(q, k, v, scale)
+    if not all(torch.equal(a, b2) for a, b2 in zip((out, l, m), again)):
+        raise RuntimeError("K3: two launches differ")
     # Both K4 passes and their plain versions take the plain forward's
     # residuals, so each is held against its plain version alone.
     di = (p_out * do).sum(dim=-1)
@@ -316,8 +330,7 @@ def k34_phases(torch, K, F):
                                             want[2], scale)
         torch.cuda.synchronize()
         for name, a, w in zip(("out", "l", "m", "dq", "dk", "dv"), got, want):
-            rel_err(torch, a, w, f"K3/K4 Sq={sq} Sk={sk} {name}",
-                    TC_TOL if name.startswith("d") else KERNEL_TOL)
+            rel_err(torch, a, w, f"K3/K4 Sq={sq} Sk={sk} {name}", TC_TOL)
     print("K3/K4 ragged edges (Sq, Sk) = (4100, 4100), (300, 70): within tolerance")
 
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -334,7 +347,7 @@ def k34_phases(torch, K, F):
                       q, k, v, scale), 3),
                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                       q, k, v, scale=scale), 20),
-                  **bound(2 * flops, 4 * n + 2 * stats, False)}
+                  **bound(2 * flops, 4 * n + 2 * stats, True)}
     rows["K4_dkv"] = {"shape": list(shape), "max_abs_err": err_dkv,
                       "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
                           q, k, v, do, p_l, p_m, di, scale), 10),
@@ -591,9 +604,13 @@ def main() -> int:
             print(f"  {name}: {line.strip()}")
 
     from p2p_tpu_torch import random_pipeline
+    from p2p_tpu_torch.kernels.flash import d40_occupancy
     from p2p_tpu_torch.models.config import SD14
     from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
+    d40_blocks, d40_warps = d40_occupancy()
+    print(f"K1/K3 d = 40 kernel: {d40_warps} warps a block, {d40_blocks} "
+          "blocks per SM")
     k1 = k1_phases(torch, K, F)
     k2 = k2_phases(torch, K)
     k34 = k34_phases(torch, K, F)
@@ -611,6 +628,9 @@ def main() -> int:
                      merge_launches={"main_path": counts["flash_merge"],
                                      "inversion": inv_counts["flash_merge"],
                                      "replay": replay_counts["flash_merge"]},
+                     units="tensor cores, 3xTF32, at d = 40 (flash_d40_kernel) "
+                           "and d = 512 (flash_d512_kernel)",
+                     d40_occupancy={"warps": d40_warps, "blocks_per_sm": d40_blocks},
                      note="launches counts wrapper calls; a d = 512 call that "
                           "splits its keys also launches flash_merge_kernel "
                           "(merge_launches), and its ms includes the merge"),
@@ -618,7 +638,9 @@ def main() -> int:
                      "p2p_tpu/kernels/fused_edit.py:210", counts["fused_edit"], k2),
         kernel_entry("flash_attn_residuals", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:343", inv_counts["flash_attn_residuals"],
-                     [k34["K3"]]),
+                     [k34["K3"]],
+                     units="tensor cores, 3xTF32 (flash_d40_kernel, K1's kernel "
+                           "writing m and l)"),
         kernel_entry("flash_attn_bwd_dq", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
                      "p2p_tpu/models/nn.py:308", inv_counts["flash_attn_bwd_dq"],
                      [k34["K4_dq"]]),

@@ -13,22 +13,41 @@
 // residuals the backward (flash_attn_bwd.cu) recomputes probabilities from.
 // On the null-text inversion path it runs at (1, 8, 4096, 40).
 //
-// Two kernels behind one entry point:
+// Every kernel streams the keys and values tile by tile with an online
+// softmax (running row max m and sum l, the output rescaled by exp(m_old -
+// m_new) when the max moves) and divides by l once at the end, so the
+// (S, S) scores never exist outside a tile. Three kernels behind one entry
+// point:
 //
-// flash_fwd_kernel (d = 40, 64, 80, 160), f32 on the CUDA cores. One block
-// owns BQ query rows of one (batch, head). It streams the keys and values
-// through shared memory BK rows at a time with an online softmax (running
-// row max m and sum l, the output rescaled by exp(m_old - m_new) when the
-// max moves) and divides by l once at the end, so the (S, S) scores never
-// exist outside a BQ x BK tile. A K tile and a V tile share one buffer.
-// Bound: at d = 40 the work is 4*S^2*d flops against 4*S*d*4 bytes per head,
-// some 1000 flops a byte, so it is bound by the f32 rate of the CUDA cores
-// (about 67 TFLOP/s on an H100 SXM). Register tiles of rows x keys and rows x
-// columns let each operand read from shared memory feed several FMAs.
+// flash_d40_kernel (d = 40, K1 and K3 on the paths), on the tensor cores in
+// 3xTF32 (mma_tf32.cuh): f32 accuracy at three TF32 products per product.
+// Bound: 4*S^2*d flops per head against 4*S*d*4 bytes, some 1000 flops a
+// byte, so operations bound it: 3 * 4*S^2*d at 495 TFLOP/s, 0.52 ms at
+// (4, 8, 4096, 40). FlashAttention-2's layout: each warp owns 16 query rows
+// and all the keys of a step, so the row max and sum reduce within a quad of
+// lanes by shuffles, and P never leaves registers: the C fragments of
+// S = Q K^T are the A fragments of O += P V. Q is read once, scaled by
+// scale * log2(e) and split into its TF32 parts in registers (40 a thread).
+// K and V land by cp.async, 128 keys at a time, while the previous tile
+// computes; the block then splits each landed tile once into a packed hi/lo
+// copy (K key-major, V transposed; split_pair) from which every warp reads a
+// whole split B fragment in one conflict-free 16-byte load. The softmax is
+// 2^x of pre-scaled scores (one MUFU.EX2 each); K3's m is converted back to
+// natural units. Each 64-key step's P V is taken in a fresh accumulator and
+// added in f32 (the tensor cores' accumulation rounds toward zero).
+// Eight warps (128 query rows) a block, 247 registers a thread and 122 KB of
+// shared memory: one block an SM. The split is work for the whole block, so
+// eight warps share it; two 4-warp blocks an SM (64 query rows each) ran
+// slower.
 //
-// flash_d512_kernel (d = 512), on the tensor cores in 3xTF32 (mma_tf32.cuh):
-// f32 accuracy at three TF32 products per product, bound by those products
-// (3 * 4*S^2*d flops per head at 495 TFLOP/s). A 64-row query tile (132 KB)
+// flash_fwd_kernel (d = 64, 80, 160; no path runs them), f32 on the CUDA
+// cores: one block owns BQ query rows of one (batch, head) and streams K
+// and V through one shared buffer, BK rows at a time; register tiles of
+// rows x keys and rows x columns let each operand read from shared memory
+// feed several FMAs. Bound by the CUDA cores' f32 rate (67 TFLOP/s).
+//
+// flash_d512_kernel (d = 512), on the tensor cores in 3xTF32, bound by
+// 3 * 4*S^2*d flops per head at 495 TFLOP/s. A 64-row query tile (132 KB)
 // stays in shared memory; K and V pass through a ring of three 17 KB slots
 // filled by cp.async two chunks ahead of the compute: per 64-key tile,
 // eight K chunks of 64 keys x 64 dims (S = Q K^T accumulates over them) and
@@ -36,12 +55,10 @@
 // warps: for S each owns 32 rows x 16 keys; for O each owns all 64 rows x 64
 // of the 512 columns (128 accumulators a thread). The softmax step writes P
 // to shared memory already split into its TF32 parts, so the eight warps
-// that read it do not split it again. The tensor cores' accumulation rounds
-// toward zero; summed over all 4096 keys in one accumulator that bias
-// reached 5e-6 on outputs of magnitude 0.1, so each chunk's product is
-// taken in a fresh accumulator and added to the running S and O in f32
-// (max|error| 3e-7 to 6e-7 against the plain f32 version at the path
-// shapes, as the CUDA-core kernel had). One block fills an SM, and
+// that read it do not split it again. Each chunk's product is taken in a
+// fresh accumulator and added to the running S and O in f32: summed over
+// all 4096 keys in one accumulator, the round-toward-zero bias reached 5e-6
+// on outputs of magnitude 0.1. One block fills an SM, and
 // (1, 1, 4096, 512) has only 64 query tiles for 132 SMs, so the keys are
 // split among gridDim.z blocks: each writes its unnormalized partial output
 // with its row max and sum, and flash_merge_kernel combines them in a fixed
@@ -49,6 +66,8 @@
 // convention, as ring attention merges), so the result does not vary from
 // run to run. The wrapper (p2p_tpu_torch/kernels/flash.py: key_splits)
 // picks the split and allocates the partials.
+//
+// No kernel here uses atomics: two launches give the same bits.
 #include "attn_tile.cuh"
 #include "mma_tf32.cuh"
 
@@ -141,6 +160,256 @@ int launch(const float* q, const float* k, const float* v, float* o, float* m,
   if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, bh);
   kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, m, l, sq, sk, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- d = 40
+
+namespace d40 {
+constexpr int D = 40;
+constexpr int NW = 8;                 // warps a block, 16 query rows each
+constexpr int NT = NW * 32;
+constexpr int BQ = NW * 16;           // query rows per block
+constexpr int BK = 128;               // keys per landed tile
+constexpr int BS = 64;                // keys per online-softmax step
+constexpr int KS = D / 8;             // k-steps of S = Q K^T; n-tiles of O
+constexpr int NTK = BS / 8;           // n-tiles of S; k-steps of O += P V
+constexpr int LDK = D;                // landed K tile: row stride
+constexpr int LDV = D + 4;            // landed V tile: 44, column reads conflict-free
+constexpr int LDKX = 2 * D;           // split K, key-major: 80 (ld % 32 == 16)
+constexpr int LDVX = 2 * BK;          // split V^T, dim-major: 256, chunks swizzled
+constexpr size_t SMEM =
+    sizeof(float) * (BK * LDK + BK * LDV + BK * LDKX + D * LDVX);
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+static_assert(BK % BS == 0 && BS % 8 == 0, "d = 40 warp layout");
+static_assert(SMEM <= 232448, "d = 40 tile exceeds shared memory");
+
+// 2^x in one MUFU.EX2 (results below 2^-126 flush to zero, far below f32
+// rounding of a softmax row sum of at least 1; exp2f adds a denormal-range
+// fix-up around it). 2^-inf = 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16-byte chunk j of split V^T row d: the chunks of odd rows are swapped
+// in halves, so the two rows a quarter-warp reads fall in different banks.
+__device__ __forceinline__ int vx_chunk(int d, int j) { return j ^ ((d & 1) << 2); }
+
+// Split the landed K and V tiles once for every warp: K into Kx[key][ks *
+// 16 + 4t] = split_pair(K[key][8 ks + 2t], K[key][8 ks + 2t + 1]), V
+// transposed into Vx[d][4 vx_chunk(d, j)] = split_pair(V[2j][d],
+// V[2j + 1][d]). A thread then reads each B fragment of S = Q K^T and of
+// O += P V as one 16-byte load, with no bank conflicts.
+__device__ __forceinline__ void split_kv(const float* Kr, const float* Vr,
+                                         float* Kx, float* Vx) {
+  constexpr int P = D / 2;  // pairs a key
+  for (int i = threadIdx.x; i < BK * P; i += NT) {
+    const int n = i / P, c = i % P;
+    const float2 x = *reinterpret_cast<const float2*>(Kr + n * LDK + 2 * c);
+    *reinterpret_cast<uint4*>(Kx + n * LDKX + 4 * c) = split_pair(x.x, x.y);
+  }
+  // A warp takes 4 key pairs x 8 dims at a time (lane = 4 dim + pair).
+  for (int i = threadIdx.x; i < BK / 2 * D; i += NT) {
+    const int lane = i & 31, u = i >> 5;
+    const int j = (u % (BK / 8)) * 4 + (lane & 3);
+    const int d = (u / (BK / 8)) * 8 + (lane >> 2);
+    *reinterpret_cast<uint4*>(Vx + d * LDVX + 4 * vx_chunk(d, j)) =
+        split_pair(Vr[2 * j * LDV + d], Vr[(2 * j + 1) * LDV + d]);
+  }
+}
+}  // namespace d40
+
+// grid (query tiles of BQ rows, bh), NT threads; scale2 = scale * log2(e).
+// Warp w owns query rows q0 + 16 w + [0, 16) and, for each 64-key tile,
+// all of its keys: the row max and sum reduce within a quad of lanes.
+__global__ void __launch_bounds__(d40::NT, 1)  // one block an SM
+flash_d40_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int sq,
+                 int sk, float scale2) {
+  using namespace d40;
+  extern __shared__ float smem[];
+  float* Kr = smem;                 // the landed tile, as copied
+  float* Vr = Kr + BK * LDK;
+  float* Kx = Vr + BK * LDV;        // the split tile the warps read
+  float* Vx = Kx + BK * LDKX;
+
+  const int bh = blockIdx.y;
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * BQ + warp * 16;
+
+  // The first tile's copy is in flight while Q is read.
+  cp_async_rows<D, D, LDK, BK, NT>(Kr, kb, 0, sk);
+  cp_async_rows<D, D, LDV, BK, NT>(Vr, vb, 0, sk);
+  cp_async_commit();
+
+  // Q * scale2 as the A fragments of the 5 k-steps, split once and kept in
+  // registers, in the k order of split_pair: k = t <-> dim 8 ks + 2t,
+  // k = t + 4 <-> dim 8 ks + 2t + 1. Rows past sq read as zero.
+  FragA qa[KS];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    const float* qr = q + ((size_t)bh * sq + r) * D;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float2 x = r < sq ? *reinterpret_cast<const float2*>(qr + ks * 8 + 2 * t)
+                              : make_float2(0.f, 0.f);
+      qa[ks].set(h, x.x * scale2);
+      qa[ks].set(2 + h, x.y * scale2);
+    }
+  }
+
+  // Rows g (e = 0, 1) and g + 8 (e = 2, 3): running max in log2 units and
+  // this thread's share of the running sum (summed over the quad at the end).
+  float m2[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int nk = (sk + BK - 1) / BK;
+  for (int it = 0; it < nk; ++it) {
+    const int key0 = it * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    split_kv(Kr, Vr, Kx, Vx);
+    __syncthreads();  // split tile ready; the landing buffers are free
+    if (it + 1 < nk) {
+      cp_async_rows<D, D, LDK, BK, NT>(Kr, kb, key0 + BK, sk);
+      cp_async_rows<D, D, LDV, BK, NT>(Vr, vb, key0 + BK, sk);
+    }
+    cp_async_commit();
+
+#pragma unroll
+    for (int k1 = 0; k1 < BK; k1 += BS) {
+      // s = (Q scale2) K^T over the step's BS keys, in a fresh accumulator.
+      float s[NTK][4];
+#pragma unroll
+      for (int n = 0; n < NTK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        FragB b[NTK];
+#pragma unroll
+        for (int n = 0; n < NTK; ++n)
+          load_b_pair(b[n], Kx + (k1 + n * 8 + g) * LDKX + ks * 16 + 4 * t);
+        mma_3xtf32([&](int ta, int tb) {
+#pragma unroll
+          for (int n = 0; n < NTK; ++n) mma_tf32(s[n], qa[ks].x[ta], b[n].x[tb]);
+        });
+      }
+      if (key0 + k1 + BS > sk) {  // keys past sk score -inf
+#pragma unroll
+        for (int n = 0; n < NTK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key0 + k1 + n * 8 + 2 * t + (e & 1) >= sk) s[n][e] = -INFINITY;
+      }
+
+      // Online softmax in registers, base 2: p = exp2(s - m2).
+      float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+      for (int n = 0; n < NTK; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float ps[2] = {0.f, 0.f}, c[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        c[h] = exp2_ftz(m2[h] - mx[h]);  // 0 on the first tile
+        m2[h] = mx[h];
+      }
+#pragma unroll
+      for (int n = 0; n < NTK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2_ftz(s[n][e] - m2[e >> 1]);  // -inf gives 0
+          ps[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) lsum[h] = lsum[h] * c[h] + ps[h];
+
+      // O = O c + P V: each n-tile of P's C fragments is the A fragment of
+      // one k-step (a_from_c), split in registers; the step's product is
+      // taken in a fresh accumulator and added in f32 (the tensor cores'
+      // accumulation rounds toward zero).
+      float tile[KS][4];
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < NTK; ++kt) {
+        FragA a;
+        a_from_c(a, s[kt]);
+        FragB b[KS];
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          const int d = n * 8 + g;
+          load_b_pair(b[n], Vx + d * LDVX + 4 * vx_chunk(d, (k1 / 8 + kt) * 4 + t));
+        }
+        mma_3xtf32([&](int ta, int tb) {
+#pragma unroll
+          for (int n = 0; n < KS; ++n) mma_tf32(tile[n], a.x[ta], b[n].x[tb]);
+        });
+      }
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], c[e >> 1], tile[n][e]);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+  }
+  float* ob = o + (size_t)bh * sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= sq) continue;
+    const float inv = 1.f / lsum[h];
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+      *reinterpret_cast<float2*>(ob + (size_t)r * D + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    // K3's residuals in natural units: m = m2 / log2(e), l = sum exp(s - m).
+    if (m_out != nullptr && t == 0) {
+      m_out[(size_t)bh * sq + r] = m2[h] * LN2;
+      l_out[(size_t)bh * sq + r] = lsum[h];
+    }
+  }
+}
+
+cudaError_t d40_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_d40_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)d40::SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flash_d40_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+int launch_d40(const float* q, const float* k, const float* v, float* o, float* m,
+               float* l, int bh, int sq, int sk, float scale, cudaStream_t stream) {
+  cudaError_t err = d40_attributes();
+  if (err != cudaSuccess) return err;
+  dim3 grid((sq + d40::BQ - 1) / d40::BQ, bh);
+  flash_d40_kernel<<<grid, d40::NT, d40::SMEM, stream>>>(q, k, v, o, m, l, sq, sk,
+                                                         scale * d40::LOG2E);
   return cudaGetLastError();
 }
 
@@ -480,7 +749,7 @@ extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v
   if (nsplit != 1) return cudaErrorInvalidValue;
   switch (d) {
     case 40:
-      return launch<40, 64, 64, 16, 16>(q, k, v, o, m, l, bh, sq, sk, scale, s);
+      return launch_d40(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 64:
       return launch<64, 64, 64, 16, 8>(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 80:
@@ -490,4 +759,17 @@ extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Blocks of the d = 40 kernel resident on one SM (its occupancy), and its
+// warps a block through *warps; a negative cudaError_t on failure.
+extern "C" int p2p_flash_attn_d40_occupancy(int* warps) {
+  cudaError_t err = d40_attributes();
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_d40_kernel,
+                                                        d40::NT, d40::SMEM);
+  if (err != cudaSuccess) return -(int)err;
+  *warps = d40::NW;
+  return blocks;
 }

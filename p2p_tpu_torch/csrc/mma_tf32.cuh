@@ -1,5 +1,5 @@
 // Tensor-core products at f32 accuracy ("3xTF32") for the port's Hopper
-// kernels (flash_attn.cu at d = 512, flash_attn_bwd.cu).
+// kernels (flash_attn.cu at d = 40 and d = 512, flash_attn_bwd.cu).
 //
 // A TF32 tensor-core product keeps 10 mantissa bits of each operand, about
 // three decimal digits, too few for the f32 reference these kernels are held
@@ -21,7 +21,10 @@
 // The order of the k index inside one mma is free as long as A and B agree.
 // So a C fragment can serve as the A fragment of the next product directly:
 // take c0, c2 as a0, a1 (k = t) and c1, c3 as a2, a3 (k = t + 4), and read
-// B's row 2t as k = t and row 2t + 1 as k = t + 4 (see load_b_perm).
+// B's row 2t as k = t and row 2t + 1 as k = t + 4 (see load_b_perm). The
+// same order (k = t <-> 2t, k = t + 4 <-> 2t + 1) lets a thread's two B
+// values be neighbours in memory, so a tile stored by split_pair gives a
+// whole split B fragment in one 16-byte load (load_b_pair).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -140,6 +143,24 @@ __device__ __forceinline__ void a_from_c(FragA& f, const float* c) {
   f.set(1, c[2]);
   f.set(2, c[1]);
   f.set(3, c[3]);
+}
+
+// Two neighbouring operands split once, packed as {hi(x0), hi(x1), lo(x0),
+// lo(x1)}: the B fragment b0 = x0, b1 = x1 in the k order above.
+__device__ __forceinline__ uint4 split_pair(float x0, float x1) {
+  uint4 r;
+  split_tf32(x0, r.x, r.z);
+  split_tf32(x1, r.y, r.w);
+  return r;
+}
+
+// The B fragment packed by split_pair at p (16-byte aligned): one load.
+__device__ __forceinline__ void load_b_pair(FragB& f, const float* p) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  f.x[HI][0] = x.x;
+  f.x[HI][1] = x.y;
+  f.x[LO][0] = x.z;
+  f.x[LO][1] = x.w;
 }
 
 // Split rows x cols values of a shared tile (row stride ld) in place into

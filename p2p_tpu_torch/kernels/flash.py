@@ -6,18 +6,20 @@ K1 (:func:`flash_attention`) replaces the JAX package's
 kernel behind ``fused_attention``); K3 (:func:`flash_attention_residuals`)
 replaces ``flash_attention_residuals``, the same Pallas kernel with
 ``save_residuals=True`` — also its forward rule under differentiation. Both
-launch the CUDA kernel of ``csrc/flash_attn.cu``: non-causal, unmasked
+launch the CUDA kernels of ``csrc/flash_attn.cu``: non-causal, unmasked
 ``softmax(q·kᵀ·scale)·v`` in f32, blockwise with an online softmax, so the
 (S, S) scores never exist in device memory; K3 also writes each row's max
-``m`` and sum ``l`` of ``exp(s − m)``. At d = 512 the kernel runs on the
-tensor cores in 3xTF32 (f32 accuracy; :mod:`.tf32` emulates it) and may
-split the keys among several blocks (:func:`key_splits`); a second kernel
-merges the partial outputs in a fixed order (:func:`merge_partials` is its
-plain version). Main-path shapes: K1 at the U-Net's 64²-pixel self sites,
-q/k/v ``(4, 8, 4096, 40)``, and the VAE's mid attention ``(2, 1, 4096,
-512)`` (no split) and ``(1, 1, 4096, 512)`` (two splits, in the
-inversion's encode and decode); K3 at ``(1, 8, 4096, 40)`` in the null-text
-inversion's gradient steps.
+``m`` and sum ``l`` of ``exp(s − m)``. At the paths' head dims, 40 and 512,
+the kernels run on the tensor cores in 3xTF32 (f32 accuracy; :mod:`.tf32`
+emulates both, :func:`.tf32.flash_d40` the d = 40 kernel step by step);
+d = 64, 80 and 160, which no path runs, use an f32 kernel on the CUDA
+cores. At d = 512 the kernel may split the keys among several blocks
+(:func:`key_splits`); a second kernel merges the partial outputs in a fixed
+order (:func:`merge_partials` is its plain version). Main-path shapes: K1
+at the U-Net's 64²-pixel self sites, q/k/v ``(4, 8, 4096, 40)``, and the
+VAE's mid attention ``(2, 1, 4096, 512)`` (no split) and ``(1, 1, 4096,
+512)`` (two splits, in the inversion's encode and decode); K3 at ``(1, 8,
+4096, 40)`` in the null-text inversion's gradient steps.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its own launches in
@@ -112,7 +114,21 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    occ = lib.p2p_flash_attn_d40_occupancy
+    occ.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     return lib
+
+
+def d40_occupancy() -> tuple:
+    """``(blocks, warps)``: blocks of the d = 40 kernel resident on one SM of
+    the current card, and its warps a block."""
+    lib = _lib()
+    warps = ctypes.c_int(0)
+    blocks = lib.p2p_flash_attn_d40_occupancy(ctypes.byref(warps))
+    if blocks < 0:
+        build.check(lib, -blocks, "p2p_flash_attn_d40_occupancy")
+    return blocks, warps.value
 
 
 def check_operands(what: str, tensors, head_dims) -> None:

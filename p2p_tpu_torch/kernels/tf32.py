@@ -1,5 +1,6 @@
 """Plain emulation of the tensor-core arithmetic of the port's 3xTF32
-kernels (``csrc/mma_tf32.cuh``: K1 at d = 512, both passes of K4).
+kernels (``csrc/mma_tf32.cuh``: K1 and K3 at d = 40 and d = 512, both
+passes of K4).
 
 A TF32 operand keeps the sign, the 8 exponent bits and the top 10 of f32's
 23 mantissa bits. The kernels split each f32 operand ``x`` into ``hi =
@@ -7,13 +8,18 @@ tf32(x)`` and ``lo = tf32(x − hi)``, rounding to nearest with ties away from
 zero as ``cvt.rna.tf32.f32`` does, and take a product as ``lo·hi + hi·lo +
 hi·hi`` with an f32 accumulator ("3xTF32"); a product of two TF32 values is
 exact in f32, so only the accumulation rounds. One TF32 product alone
-("1xTF32") keeps about three decimal digits.
+("1xTF32") keeps about three decimal digits. :func:`flash_d40` follows the
+d = 40 kernel (``flash_d40_kernel``) step by step: its online softmax in
+base 2, each step's products in a fresh accumulator added in f32, and its
+residuals converted back to natural units.
 
 The tests use these functions to show what the kernels' arithmetic does to
 an attention output; the main path does not call them.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -64,3 +70,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     s = mm(q, k.transpose(-1, -2)) * scale
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return mm(p, v) / p.sum(dim=-1, keepdim=True)
+
+
+#: Keys per online-softmax step of the d = 40 kernel.
+D40_STEP = 64
+
+
+def flash_d40(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              mm=mm_3xtf32, step: int = D40_STEP):
+    """``(out, l, m)`` of softmax attention as ``flash_d40_kernel`` computes
+    them: q scaled by ``scale·log2(e)`` (in f32, as the kernel scales its Q
+    fragments), then per ``step`` keys the scores ``s`` by ``mm``, the
+    running max ``m2 = max(m2, max s)`` and ``p = 2^(s − m2)``, the sum and
+    output rescaled by ``2^(m2_old − m2)`` and ``p·v`` by ``mm`` added to
+    the output in f32. Returns the output divided by ``l`` once, ``l`` and
+    ``m = m2·ln 2``: the residual convention of
+    :func:`.flash.flash_attention_residuals_plain`."""
+    f32 = torch.float32
+    scale2 = torch.tensor(scale, dtype=f32) * torch.tensor(math.log2(math.e), dtype=f32)
+    qs = q.float() * scale2
+    m2 = torch.full(q.shape[:-1], -math.inf, dtype=f32)
+    l = torch.zeros(q.shape[:-1], dtype=f32)
+    o = torch.zeros(q.shape, dtype=f32)
+    for k0 in range(0, k.shape[-2], step):
+        kt, vt = k[..., k0:k0 + step, :].float(), v[..., k0:k0 + step, :].float()
+        s = mm(qs, kt.transpose(-1, -2))
+        m_new = torch.maximum(m2, s.amax(dim=-1))
+        c = torch.exp2(m2 - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * c + p.sum(dim=-1)
+        o = o * c[..., None] + mm(p, vt)
+        m2 = m_new
+    return o / l[..., None], l, m2 * torch.tensor(math.log(2.0), dtype=f32)
