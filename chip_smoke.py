@@ -13,24 +13,27 @@ Phases, each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``), and the build of
    ``p2p_tpu_torch/csrc/*.cu`` for ``sm_90a`` (one ``nvcc`` per source, in
    parallel);
-2. kernel phases: K1 (flash attention), K2 (fused edit), K3 (flash
-   forward with residuals) and K4 (flash backward, a dk/dv and a dq pass)
-   against their plain versions on the same card inputs, max|Δ| ≤ 1e-4 in
-   f32 with TF32 off for K2, on the CUDA cores, and ≤ 1e-5 for the kernels
-   on the tensor cores in 3xTF32 (K1 and K3 at d = 40 and d = 512, K4;
-   K3/K4 relative to the plain output's largest magnitude), K1 at both head
-   dims also at ragged lengths; K1 at every path shape, K3 and both K4
-   passes give bitwise-equal outputs from two launches; each timed with CUDA
-   events beside its plain version, its roofline bound on the units it runs
-   on (``bound_ms``; both the f32 CUDA-core and the 3xTF32 tensor-core
-   figures beside it) and, where one exists, a PyTorch call computing the
-   same function (``scaled_dot_product_attention`` forward, or its
-   backward); the d = 40 kernel's occupancy (blocks per SM);
+2. kernel phases: K1 (flash attention), K2 (fused edit: an f32 fold, then
+   the main kernel), K3 (flash forward with residuals) and K4 (flash
+   backward, a dk/dv and a dq pass) against their plain versions on the same
+   card inputs (f32, TF32 off for PyTorch), all on the tensor cores in
+   3xTF32 and held to max|Δ| ≤ 1e-5 (K2, K3 and K4 relative to the plain
+   output's largest magnitude), K1 at both head dims also at ragged lengths;
+   K1 at every path shape, K2 at its 13 geometries, K3 and both K4 passes
+   give bitwise-equal outputs from two launches; each timed with CUDA events
+   beside its plain version, its roofline bound on the units it runs on
+   (``bound_ms``; both the f32 CUDA-core and the 3xTF32 tensor-core figures
+   beside it) and, where one exists, a PyTorch call computing the same
+   function (``scaled_dot_product_attention`` forward, or its backward; for
+   K2, which has none, SDPA at its shapes as a yardstick); K2 also as a
+   replayed CUDA graph (its device time without the host's); the d = 40
+   kernel's occupancy (blocks per SM);
 3. the main path: random SD-1.4 weights at full width from seed 0, 512²,
    2 prompts, DDIM 50 steps, CFG 7.5, an ``attention_replace`` edit
    (store off) with ``kernels=KernelConfig()``; the launch counts must be
-   exactly 5 K1 and 22 K2 per step plus 1 K1 for the VAE, and the final
-   latents must agree with the ``kernels=None`` run within 1e-2;
+   exactly 5 K1 and 22 K2 (each with its fold) per step plus 1 K1 for the
+   VAE, and the final latents must agree with the ``kernels=None`` run
+   within 1e-2;
 4. the inversion path: ``invert`` of a seeded 512² image at the reference
    defaults (50 steps, 10 inner steps, early stop 1e-5, CFG 7.5); the
    launch counts must be exactly what the layout and the inner-iteration
@@ -56,11 +59,11 @@ import subprocess
 import sys
 import time
 
-KERNEL_TOL = 1e-4      # kernel vs plain version, f32, same inputs
-# The same for the kernels on the tensor cores in 3xTF32 (K1 and K3 at
-# d = 40 and d = 512, K4): they keep f32 accuracy, and this limit fails one
-# TF32 pass (tests/test_torch_tf32.py, tests/test_torch_flash_tc.py) or one
-# f32 accumulator over a 4096-long sum.
+# Kernel vs plain version, f32, same inputs, for every kernel (all on the
+# tensor cores in 3xTF32): they keep f32 accuracy, and this limit fails one
+# TF32 pass (tests/test_torch_tf32.py, tests/test_torch_flash_tc.py,
+# tests/test_torch_fused_edit_tc.py) or one f32 accumulator over a 4096-long
+# sum.
 TC_TOL = 1e-5
 DRIFT_TOL = 1e-2       # fused-edit run vs materialized run, final latents
 STEPS = 50
@@ -127,8 +130,9 @@ def card_line() -> str:
 
 
 def path_counts(K) -> dict:
-    """Every wrapper's launch count, and K1's key-split merges."""
-    return {**K.launch_counts(), "flash_merge": K.merge_launches()}
+    """Every wrapper's launch count, K1's key-split merges and K2's folds."""
+    return {**K.launch_counts(), "flash_merge": K.merge_launches(),
+            "fused_edit_fold": K.fold_launches()}
 
 
 def vae_merges(torch, pipe, batch: int) -> int:
@@ -198,11 +202,24 @@ def k1_phases(torch, K, F):
     return rows
 
 
-def k2_phases(torch, K):
-    """K2 at every main-path (P, D, Kp): the 16 cross sites (Replace and
-    Refine operands) and the 6 self sites inside (α = 1) and outside (α = 0)
-    the injection window; and the replay edit's cross sites at P = 4096
-    (Replace with Reweight's equalizer)."""
+def graph_ms(torch, fn, iters: int) -> float:
+    """ms of one call's device work: the call captured in a CUDA graph and
+    replayed, so the host's time per call does not enter."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, iters)
+
+
+def k2_cases(torch):
+    """``[(label, spec, operands, q, k, v, scale)]`` at K2's 13 main-path
+    geometries (P, D, K), with the real operands of their controllers: the
+    16 cross sites (Replace and Refine) and the 6 self sites inside (step 0,
+    α = 1) and outside (step 45, α = 0) the injection window; and the replay
+    edit's cross sites at P = 4096 (Replace with Reweight's equalizer). CFG
+    batch 4 (one edit row), q/k/v drawn in order from one generator."""
     from p2p_tpu_torch.controllers.factory import (
         attention_refine,
         attention_replace,
@@ -222,49 +239,78 @@ def k2_phases(torch, K):
     for m in unet_layout(SD14.unet).metas:
         metas.setdefault((m.is_cross, m.pixels), m)
     gen = torch.Generator("cuda").manual_seed(2)
-    cases = [(kind, metas[(True, p)], 0) for p in (4096, 1024, 256, 64)
-             for kind in ("replace", "refine")]
-    cases += [("replace", metas[(False, p)], step) for p in (256, 64) for step in (0, 45)]
-    cases += [("reweight", metas[(True, 4096)], 0)]
-    rows = []
-    for kind, meta, step in cases:
+    plan = [(kind, metas[(True, p)], 0) for p in (4096, 1024, 256, 64)
+            for kind in ("replace", "refine")]
+    plan += [("replace", metas[(False, p)], step) for p in (256, 64) for step in (0, 45)]
+    plan += [("reweight", metas[(True, 4096)], 0)]
+    cases = []
+    for kind, meta, step in plan:
         ctrl = ctrls[kind]
-        edit = ctrl.edit.to("cuda")
         spec = kernel_edit_spec(ctrl, meta)
-        ops = {n: t.contiguous() for n, t in edit_operands(edit, spec, step).items()}
+        ops = {n: t.contiguous() for n, t in
+               edit_operands(ctrl.edit.to("cuda"), spec, step).items()}
         d = meta.channels // meta.heads
         q = torch.randn((4, meta.heads, meta.pixels, d), generator=gen, device="cuda")
         k, v = (torch.randn((4, meta.heads, meta.key_len, d), generator=gen,
                             device="cuda") for _ in range(2))
-        scale = d ** -0.5
-        out = K.edit_attention(q, k, v, scale, spec, ops)
-        torch.cuda.synchronize()
-        err = max_err(torch, out, K.edit_attention_plain(q, k, v, scale, spec, ops))
         label = (f"{'cross' if meta.is_cross else 'self'} {kind} P={meta.pixels} "
                  f"D={d} K={meta.key_len} Kp={spec.pad_len} step={step}")
-        if err > KERNEL_TOL:
-            raise RuntimeError(f"K2 {label}: max|Δ| {err} > {KERNEL_TOL}")
-        # Work this run's operands need: 3 plain rows (QK and PV), and the
-        # edit row's own softmax unless α ≡ 1 without transform, its base
-        # softmax unless α ≡ 0, its K x K transform, and its PV.
-        alpha = ops["blend"][:, :meta.key_len]
+        cases.append((label, spec, ops, q, k, v, d ** -0.5))
+    return cases
+
+
+def k2_phases(torch, K, F):
+    """K2 at its 13 main-path geometries (:func:`k2_cases`), each twice for
+    bitwise-equal outputs, within ``TC_TOL`` of the plain output's largest
+    magnitude."""
+    from p2p_tpu_torch.kernels.fused_edit import fold_operands
+
+    rows = []
+    for label, spec, ops, q, k, v, scale in k2_cases(torch):
+        out = K.edit_attention(q, k, v, scale, spec, ops)
+        torch.cuda.synchronize()
+        want = K.edit_attention_plain(q, k, v, scale, spec, ops)
+        err = rel_err(torch, out, want, f"K2 {label}", TC_TOL)
+        if not torch.equal(out, K.edit_attention(q, k, v, scale, spec, ops)):
+            raise RuntimeError(f"K2 {label}: two launches differ")
+        # The work this run's operands need, folded: one pass (q k^T, then
+        # p v) for each plain row and for each pass of the edit row that its
+        # fold does not skip, and the fold's K x K product; and unfolded as
+        # the earlier f32 CUDA-core kernel did it, for comparison: the edit
+        # row's own softmax unless α ≡ 1 without transform, its base softmax
+        # unless α ≡ 0, its K x K transform, and its p v.
+        b_half = q.shape[0] // 2
+        c1_zero, c2_zero = (bool(z[0]) for z in fold_operands(v[b_half + 1:], spec, ops)[2:])
+        heads, pixels, keys, d = q.shape[1], q.shape[2], spec.key_len, q.shape[3]
+        qk = 2.0 * pixels * keys * d
+        fold = 2.0 * keys * keys * d if spec.has_transform and not c1_zero else 0.0
+        flops = heads * (2 * qk * (b_half + 1 + (not c1_zero) + (not c2_zero)) + fold)
+        alpha = ops["blend"][:, :keys]
         zero, one = bool((alpha == 0).all()), bool((alpha == 1).all())
-        qk = 2.0 * meta.pixels * meta.key_len * d
         edit_row = (0 if one and not spec.has_transform else qk) + qk
         if not zero:
-            edit_row += qk + (2.0 * meta.pixels * meta.key_len ** 2
-                              if spec.has_transform else 0)
-        flops = meta.heads * (3 * 2 * qk + edit_row)
+            edit_row += qk + (2.0 * pixels * keys ** 2 if spec.has_transform else 0)
+        unfolded = heads * (3 * 2 * qk + edit_row)
         nbytes = 4 * (2 * q.numel() + 2 * k.numel() + sum(t.numel() for t in ops.values()))
-        iters = 20 if meta.pixels >= 1024 else 50
+        iters = 20 if pixels >= 1024 else 50
+        call = lambda: K.edit_attention(q, k, v, scale, spec, ops)  # noqa: E731
         rows.append({
-            "site": label, "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: K.edit_attention(q, k, v, scale, spec, ops), iters),
+            "site": label, "max_abs_err": err, "max_rel_err": err / want.abs().max().item(),
+            "edit_row_passes": [p for p, z in (("base", c1_zero), ("own", c2_zero)) if not z],
+            "ms": cuda_ms(torch, call, iters),
+            "device_ms": graph_ms(torch, call, iters),
             "plain_ms": cuda_ms(torch, lambda: K.edit_attention_plain(
                 q, k, v, scale, spec, ops), 5),
-            "library_ms": None, **bound(flops, nbytes, False)})
-        print(f"K2 {label}: max|Δ| {err:.3g}  kernel {rows[-1]['ms']:.4f} ms  "
-              f"plain {rows[-1]['plain_ms']:.4f} ms  {bound_text(rows[-1])}")
+            "library_ms": None,
+            "sdpa_yardstick_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale), iters),
+            **bound(flops, nbytes, True), "flops": flops, "unfolded_flops": unfolded,
+            "unfolded_bound_f32_ms": bound(unfolded, nbytes, False)["bound_ms"]})
+        r = rows[-1]
+        print(f"K2 {label}: passes {r['edit_row_passes']}  kernel {r['ms']:.4f} ms "
+              f"(device {r['device_ms']:.4f})  plain {r['plain_ms']:.4f} ms  sdpa "
+              f"yardstick {r['sdpa_yardstick_ms']:.4f} ms  {bound_text(r)}")
+    print("K2: two launches give bitwise-equal outputs at every geometry")
     return rows
 
 
@@ -399,7 +445,8 @@ def main_path(torch, K, pipe):
     img, lat, secs = run(KernelConfig())
     counts = path_counts(K)
     want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * 5 + 1,
-            "fused_edit": STEPS * 22, "flash_merge": vae_merges(torch, pipe, 2)}
+            "fused_edit": STEPS * 22, "fused_edit_fold": STEPS * 22,
+            "flash_merge": vae_merges(torch, pipe, 2)}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, expected {want}")
     if img.shape != (2, 512, 512, 3) or img.dtype != torch.uint8:
@@ -535,7 +582,8 @@ def replay_path(torch, K, pipe, art, image):
     img, lat, secs = run(KernelConfig(), ups)
     counts = path_counts(K)
     want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * n_k1 + 1,
-            "fused_edit": STEPS * n_k2, "flash_merge": vae_merges(torch, pipe, 2)}
+            "fused_edit": STEPS * n_k2, "fused_edit_fold": STEPS * n_k2,
+            "flash_merge": vae_merges(torch, pipe, 2)}
     if counts != want:
         raise RuntimeError(f"replay launch counts {counts}, expected {want}")
     size = pipe.config.image_size
@@ -612,7 +660,7 @@ def main() -> int:
     print(f"K1/K3 d = 40 kernel: {d40_warps} warps a block, {d40_blocks} "
           "blocks per SM")
     k1 = k1_phases(torch, K, F)
-    k2 = k2_phases(torch, K)
+    k2 = k2_phases(torch, K, F)
     k34 = k34_phases(torch, K, F)
     t0 = time.perf_counter()
     pipe = random_pipeline(SD14, HashWordTokenizer(), "cuda", seed=0)
@@ -635,7 +683,17 @@ def main() -> int:
                           "splits its keys also launches flash_merge_kernel "
                           "(merge_launches), and its ms includes the merge"),
         kernel_entry("fused_edit", "p2p_tpu_torch/csrc/fused_edit.cu",
-                     "p2p_tpu/kernels/fused_edit.py:210", counts["fused_edit"], k2),
+                     "p2p_tpu/kernels/fused_edit.py:210", counts["fused_edit"], k2,
+                     fold_launches={"main_path": counts["fused_edit_fold"],
+                                    "replay": replay_counts["fused_edit_fold"]},
+                     units="tensor cores, 3xTF32 (edit_attn_kernel), after an f32 "
+                           "fold on the CUDA cores (fold_kernel)",
+                     note="launches counts wrapper calls; each also launches "
+                          "fold_kernel (fold_launches), and its ms includes the "
+                          "fold; library_ms is null (no PyTorch call computes "
+                          "the edit), sdpa_yardstick_ms times SDPA at the same "
+                          "shapes; bound_ms counts the folded work, "
+                          "unfolded_flops the work of the earlier unfolded f32 kernel"),
         kernel_entry("flash_attn_residuals", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:343", inv_counts["flash_attn_residuals"],
                      [k34["K3"]],

@@ -185,15 +185,6 @@ constexpr float LN2 = 0.6931471805599453f;
 static_assert(BK % BS == 0 && BS % 8 == 0, "d = 40 warp layout");
 static_assert(SMEM <= 232448, "d = 40 tile exceeds shared memory");
 
-// 2^x in one MUFU.EX2 (results below 2^-126 flush to zero, far below f32
-// rounding of a softmax row sum of at least 1; exp2f adds a denormal-range
-// fix-up around it). 2^-inf = 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // 16-byte chunk j of split V^T row d: the chunks of odd rows are swapped
 // in halves, so the two rows a quarter-warp reads fall in different banks.
 __device__ __forceinline__ int vx_chunk(int d, int j) { return j ^ ((d & 1) << 2); }

@@ -1,5 +1,6 @@
 // Tensor-core products at f32 accuracy ("3xTF32") for the port's Hopper
-// kernels (flash_attn.cu at d = 40 and d = 512, flash_attn_bwd.cu).
+// kernels (flash_attn.cu at d = 40 and d = 512, flash_attn_bwd.cu,
+// fused_edit.cu).
 //
 // A TF32 tensor-core product keeps 10 mantissa bits of each operand, about
 // three decimal digits, too few for the f32 reference these kernels are held
@@ -182,6 +183,15 @@ __device__ __forceinline__ void split_tile(float* t, float* lo) {
     *reinterpret_cast<uint4*>(t + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
   }
+}
+
+// 2^x in one MUFU.EX2 (results below 2^-126 flush to zero, far below f32
+// rounding of a softmax row sum of at least 1; exp2f adds a denormal-range
+// fix-up around it). 2^-inf = 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Asynchronous 16-byte global-to-shared copy; src_bytes == 0 fills zeros.

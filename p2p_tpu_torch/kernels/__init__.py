@@ -9,13 +9,16 @@
   (:func:`flash_bwd.flash_attention_bwd_dq`), ``csrc/flash_attn_bwd.cu``;
   with K3 it makes :class:`flash_bwd.FlashAttentionFunction`.
 - K2 :func:`fused_edit.edit_attention` — softmax with the prompt-to-prompt
-  edit inside it (``csrc/fused_edit.cu``).
+  edit inside it (``csrc/fused_edit.cu``): a fold kernel, then the main
+  kernel.
 
 Each wrapper runs its plain PyTorch version on CPU tensors, launches its
 kernel on CUDA tensors (built on first use by :mod:`.build`) and counts its
 launches in ``<wrapper>.launches``; K1's and K3's wrappers also count the
 merge kernel their d = 512 calls launch when they split the keys, in
-``<wrapper>.merge_launches`` (:func:`merge_launches`).
+``<wrapper>.merge_launches`` (:func:`merge_launches`), and K2's wrapper the
+fold kernel it launches before the main kernel, in
+``edit_attention.fold_launches`` (:func:`fold_launches`).
 """
 
 from .dispatch import (
@@ -59,10 +62,16 @@ def merge_launches() -> int:
     return flash_attention.merge_launches + flash_attention_residuals.merge_launches
 
 
+def fold_launches() -> int:
+    """Launches of K2's fold kernel, one per K2 launch."""
+    return edit_attention.fold_launches
+
+
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention.merge_launches = 0
     edit_attention.launches = 0
+    edit_attention.fold_launches = 0
     flash_attention_residuals.launches = 0
     flash_attention_residuals.merge_launches = 0
     flash_attention_bwd_dq.launches = 0
@@ -78,6 +87,6 @@ __all__ = [
     "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
     "flash_attention_bwd_dq_plain", "FlashAttentionFunction",
     "edit_attention", "edit_attention_plain",
-    "fused_site_attention", "launch_counts", "merge_launches",
+    "fused_site_attention", "fold_launches", "launch_counts", "merge_launches",
     "reset_launch_counts",
 ]

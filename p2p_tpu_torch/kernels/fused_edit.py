@@ -1,4 +1,4 @@
-"""K2: fused edit attention — wrapper, plain version and launch count.
+"""K2: fused edit attention — wrapper, plain version, the fold, launch counts.
 
 Replaces the JAX package's ``edit_attention`` (``p2p_tpu/kernels/fused_edit.py``,
 the Pallas ``_edit_kernel``): softmax attention with the prompt-to-prompt
@@ -14,11 +14,21 @@ never reaches device memory. For every CFG row ``b`` of
     edited = new·α + (1 − α)·probs
     out    = (edited if b ≥ B + 1 else probs) @ v_b
 
-with the operands of :func:`controllers.kernel_spec.edit_operands`. The CUDA
-kernel is ``csrc/fused_edit.cu``; :func:`edit_attention_plain` is the same
-formula in plain PyTorch, on the lane-padded key axis with the JAX package's
-mask value. On a CPU tensor the wrapper runs the plain version; on a CUDA
-tensor it launches the kernel or raises.
+with the operands of :func:`controllers.kernel_spec.edit_operands`.
+:func:`edit_attention_plain` is that formula in plain PyTorch, on the
+lane-padded key axis with the JAX package's mask value. The CUDA kernels
+(``csrc/fused_edit.cu``) compute it folded: every operand scales a key
+column, so for an edit row ``e``::
+
+    out_e = softmax(q_B·k_Bᵀ·scale) @ V1_e + softmax(q_e·k_eᵀ·scale) @ V2_e
+    V1_e  = M_e·diag(c1_e)·v_e                 c1 = ra·eq·α
+    V2_e  = diag(c2_e)·v_e                     c2 = (1 − ra)·eq·α + (1 − α)
+
+(:func:`fold_operands`): a fold kernel writes ``V1``, ``V2`` and the flags
+``c1 ≡ 0``, ``c2 ≡ 0``, and the main kernel runs one or two softmax-attention
+passes a row on the tensor cores in 3xTF32 (emulated by
+:func:`.tf32.fused_edit_folded`). On a CPU tensor the wrapper runs the plain
+version; on a CUDA tensor it launches both kernels or raises.
 """
 
 from __future__ import annotations
@@ -36,8 +46,12 @@ from . import build
 #: Additive mask of the lane-padded key columns (the JAX kernel's value).
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
-#: Head dims the CUDA kernel is instantiated for.
+#: Head dims the CUDA kernels are instantiated for.
 SUPPORTED_HEAD_DIMS = (16, 32, 40, 64, 80, 160)
+
+#: Keys per online-softmax step of the main kernel at each head dim
+#: (``Tile<D>::BS``): a cross site's 77 keys are one step up to D = 40.
+STEP_KEYS = {16: 80, 32: 80, 40: 80, 64: 40, 80: 40, 160: 32}
 
 
 def edit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,13 +86,42 @@ def edit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v_p).to(v.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("fused_edit")
-    fn = lib.p2p_fused_edit_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def fold_operands(v_edits: torch.Tensor, spec: EditSpec, operands: dict):
+    """The fold in f32, as the fold kernel computes it: ``(V1, V2, c1_zero,
+    c2_zero)`` for the edit rows' values ``v_edits`` ``(E, H, K, D)``, with
+    ``V1 = M·diag(c1)·v`` and ``V2 = diag(c2)·v`` ``(E, H, K, D)`` and the
+    flags ``(E,)`` bool: ``c1`` (``c2``) is 0 on every key. Only the first K
+    entries of each operand row are read."""
+    k = spec.key_len
+    e = v_edits.shape[0]
+    ones = torch.ones((e, k), dtype=torch.float32, device=v_edits.device)
+
+    def row(name):
+        t = operands.get(name)
+        return ones if t is None else t[:, :k]
+
+    ra, eq, al = row("refine_mix"), row("equalizer"), operands["blend"][:, :k]
+    c1 = ra * eq * al
+    c2 = (1.0 - ra) * eq * al + (1.0 - al)
+    v = v_edits.float()
+    v1 = c1[:, None, :, None] * v
+    if spec.has_transform:
+        v1 = torch.einsum("ewn,ehnd->ehwd", operands["transform"][:, :k, :k], v1)
+    return v1, c2[:, None, :, None] * v, (c1 == 0).all(dim=1), (c2 == 0).all(dim=1)
+
+
+_ENTRY = []   # [(library, p2p_fused_edit_fwd)] once loaded
+
+
+def _entry():
+    if not _ENTRY:
+        lib = build.library("fused_edit")
+        fn = lib.p2p_fused_edit_fwd
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ENTRY.append((lib, fn))
+    return _ENTRY[0]
 
 
 def _operand(operands: dict, name: str, shape, device) -> Optional[torch.Tensor]:
@@ -131,19 +174,24 @@ def edit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _lib()
+    lib, fn = _entry()
     out = torch.empty_like(q)
-    status = lib.p2p_fused_edit_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(transform),
-        ptr(refine_mix), ptr(equalizer), blend.data_ptr(), out.data_ptr(),
-        two_b, heads, pixels, spec.key_len, d, kp, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # The fold's workspace, one allocation: V1, V2, then the (E, 2) int32 flags.
+    n = e * heads * spec.key_len * d   # values of V1, of V2
+    ws = torch.empty(2 * n + 2 * e, dtype=torch.float32, device=q.device)
+    v1 = ws.data_ptr()
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(transform),
+                ptr(refine_mix), ptr(equalizer), blend.data_ptr(), out.data_ptr(),
+                v1, v1 + 4 * n, v1 + 8 * n, two_b, heads, pixels, spec.key_len, d,
+                kp, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, status, "p2p_fused_edit_fwd")
     edit_attention.launches += 1
+    edit_attention.fold_launches += 1
     return out
 
 
 edit_attention.launches = 0
+edit_attention.fold_launches = 0
 
 
 def fused_site_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,6 +1,6 @@
 """Plain emulation of the tensor-core arithmetic of the port's 3xTF32
 kernels (``csrc/mma_tf32.cuh``: K1 and K3 at d = 40 and d = 512, both
-passes of K4).
+passes of K4, K2's main kernel).
 
 A TF32 operand keeps the sign, the 8 exponent bits and the top 10 of f32's
 23 mantissa bits. The kernels split each f32 operand ``x`` into ``hi =
@@ -11,7 +11,9 @@ exact in f32, so only the accumulation rounds. One TF32 product alone
 ("1xTF32") keeps about three decimal digits. :func:`flash_d40` follows the
 d = 40 kernel (``flash_d40_kernel``) step by step: its online softmax in
 base 2, each step's products in a fresh accumulator added in f32, and its
-residuals converted back to natural units.
+residuals converted back to natural units. :func:`fused_edit_folded`
+follows K2 (``csrc/fused_edit.cu``): the fold in f32, then one or two such
+passes a row.
 
 The tests use these functions to show what the kernels' arithmetic does to
 an attention output; the main path does not call them.
@@ -89,9 +91,9 @@ def flash_d40(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     f32 = torch.float32
     scale2 = torch.tensor(scale, dtype=f32) * torch.tensor(math.log2(math.e), dtype=f32)
     qs = q.float() * scale2
-    m2 = torch.full(q.shape[:-1], -math.inf, dtype=f32)
-    l = torch.zeros(q.shape[:-1], dtype=f32)
-    o = torch.zeros(q.shape, dtype=f32)
+    m2 = torch.full(q.shape[:-1], -math.inf, dtype=f32, device=q.device)
+    l = torch.zeros(q.shape[:-1], dtype=f32, device=q.device)
+    o = torch.zeros(q.shape, dtype=f32, device=q.device)
     for k0 in range(0, k.shape[-2], step):
         kt, vt = k[..., k0:k0 + step, :].float(), v[..., k0:k0 + step, :].float()
         s = mm(qs, kt.transpose(-1, -2))
@@ -102,3 +104,36 @@ def flash_d40(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         o = o * c[..., None] + mm(p, vt)
         m2 = m_new
     return o / l[..., None], l, m2 * torch.tensor(math.log(2.0), dtype=f32)
+
+
+def fused_edit_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float, spec, operands: dict, mm=mm_3xtf32
+                      ) -> torch.Tensor:
+    """K2's output as its CUDA kernels compute it: the fold in f32
+    (:func:`.fused_edit.fold_operands`), then for each row of ``[uncond(B);
+    base; edits(E)]`` the passes of :func:`flash_d40`'s step algorithm with
+    the main kernel's keys a step (:data:`.fused_edit.STEP_KEYS`) and its
+    products by ``mm``: one pass ``(q_b, k_b, v_b)`` for the uncond rows and
+    the base row; for an edit row the base pass ``(q_B, k_B, V1)`` unless
+    ``c1 ≡ 0`` plus its own pass ``(q_e, k_e, V2)`` unless ``c2 ≡ 0``, each
+    divided by its own row sum (zero when both are skipped). ``mm =
+    torch.matmul`` gives the folded form in plain f32."""
+    from .fused_edit import STEP_KEYS, fold_operands
+
+    b_half = q.shape[0] // 2
+    step = STEP_KEYS[q.shape[-1]]
+
+    def attend(qq, kk, vv):
+        return flash_d40(qq, kk, vv, scale, mm=mm, step=step)[0]
+
+    v1, v2, c1_zero, c2_zero = fold_operands(v[b_half + 1:], spec, operands)
+    rows = [attend(q[:b_half + 1], k[:b_half + 1], v[:b_half + 1])]
+    for e in range(v1.shape[0]):
+        out = torch.zeros_like(q[0], dtype=torch.float32)
+        if not c1_zero[e]:
+            out = attend(q[b_half], k[b_half], v1[e])
+        if not c2_zero[e]:
+            b = b_half + 1 + e
+            out = out + attend(q[b], k[b], v2[e])
+        rows.append(out[None])
+    return torch.cat(rows).to(v.dtype)

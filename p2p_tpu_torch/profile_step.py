@@ -55,7 +55,7 @@ CLASSES = (
                           "flash_merge_kernel")),
     ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel",)),
     ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel",)),
-    ("K2 fused_edit", ("fused_edit_kernel",)),
+    ("K2 fused_edit", ("edit_attn_kernel", "fold_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
                      "xmma_fprop")),
     ("matrix product", ("gemm", "gemv", "cutlass", "ampere_s", "sm90_xmma", "magma")),
