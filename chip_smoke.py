@@ -44,7 +44,17 @@ Phases, each of which raises on failure:
    ``kernels=KernelConfig()`` (exact K1/K2 counts), with ``kernels=None``
    (latents within 1e-2) and with the raw ``""`` uncond: the source row must
    end closer to the encoded image's latent with the optimized embeddings;
-6. one ``{"kernels": [...]}`` line, then the device line last.
+6. bf16: K1 at d = 40 and K2 in bf16 against their bf16 plain versions
+   (within 1e-2 of the plain output's largest magnitude, bitwise across
+   two launches; K1 at (4, 8, 4096, 40) and ragged, K2 at its 13
+   geometries), timed beside SDPA in bf16 and their bound at the bf16
+   tensor-core rate; then the Replace edit and the replay of the f32
+   artifact with ``dtype=torch.bfloat16``: exactly 5 bf16 K1 and 22 (5 in
+   the replay) bf16 K2, each with its bf16 fold, a step, and 1 f32 K1 for
+   the f32 VAE decode; the fused-vs-materialized bf16 drift (RMS) below
+   √2 times the bf16-vs-f32 distance (RMS) of the same seed, and the
+   null-text invariant;
+7. one ``{"kernels": [...]}`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA card is visible or the
 package is missing.
@@ -65,7 +75,21 @@ import time
 # tests/test_torch_fused_edit_tc.py) or one f32 accumulator over a 4096-long
 # sum.
 TC_TOL = 1e-5
+# The bf16 kernels (K1 at d = 40, K2) against their bf16 plain versions,
+# relative to the plain output's largest magnitude: both round P and the
+# output to bf16 (the fold also its values), so they differ by a few bf16
+# ulps (2^-8 relative each) where a rounding falls the other way.
+BF16_TOL = 1e-2
 DRIFT_TOL = 1e-2       # fused-edit run vs materialized run, final latents
+# bf16 runs: two bf16 runs that round anywhere differently (the fused-edit
+# run and the materialized one) part within the first step, each by bf16's
+# own distance from f32, and stay about that far apart: over SD-1.4's 50
+# steps their RMS distance tracks the bf16-vs-f32 RMS distance at every step
+# (PERF.md, bf16 findings). Two independent errors of one size are √2 of it
+# apart, so the fused-vs-materialized RMS drift is held below √2 times the
+# bf16-vs-f32 RMS distance of the materialized run; a kernel that computed
+# something else would part from the first step by far more.
+BF16_DRIFT_FACTOR = math.sqrt(2.0)
 STEPS = 50
 PROMPTS = ["a cat riding a bicycle", "a dog riding a bicycle"]
 INNER_STEPS = 10       # null-text inner iterations per outer step
@@ -74,25 +98,29 @@ IMAGE_SEED = 0         # the inverted image, uint8 noise from numpy
 BLEND_WORDS = (("cat",), ("dog",))
 EQUALIZER = {"words": ("dog",), "values": (2.0,)}
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, TF32 on the
-# tensor cores (dense), and HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, TF32 and bf16
+# on the tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def bound(flops: float, nbytes: float, tensor_cores: bool) -> dict:
-    """The least time for ``flops`` f32 operations and ``nbytes`` of memory
+def bound(flops: float, nbytes: float, tensor_cores: bool, bf16: bool = False) -> dict:
+    """The least time for ``flops`` operations and ``nbytes`` of memory
     traffic on the units the kernel runs them on (``bound_ms``, with what
-    bounds it): the tensor cores in 3xTF32, three TF32 products per
-    product, when ``tensor_cores``, else the CUDA cores in f32. Both
-    figures stand beside it (``bound_3xtf32_ms``, ``bound_f32_ms``)."""
+    bounds it): bf16 operands on the tensor cores, one product each, when
+    ``bf16``; else f32 operands on the tensor cores in 3xTF32, three TF32
+    products per product, when ``tensor_cores``, else the CUDA cores in
+    f32. The f32 figures stand beside it (``bound_3xtf32_ms``,
+    ``bound_f32_ms``)."""
     t_bytes = nbytes / PEAK_BYTES
     t_f32, t_tc = flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS
-    t_ops = t_tc if tensor_cores else t_f32
+    t_ops = flops / PEAK_BF16_FLOPS if bf16 else (t_tc if tensor_cores else t_f32)
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_on": "tensor cores, 3xTF32" if tensor_cores else "CUDA cores, f32",
+            "bound_on": ("tensor cores, bf16" if bf16 else "tensor cores, 3xTF32"
+                         if tensor_cores else "CUDA cores, f32"),
             "bound_f32_ms": max(t_f32, t_bytes) * 1e3,
             "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
 
@@ -122,6 +150,30 @@ def max_err(torch, a, b) -> float:
     return d
 
 
+def rms_err(torch, a, b) -> float:
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+def bf16_drift(torch, what: str, lat16, lat16_ref, lat32_ref) -> dict:
+    """The bf16 fused-edit latents ``lat16`` against the bf16 materialized
+    ones and the bf16 materialized against the f32 materialized ones: max
+    and RMS of each; raises unless the RMS drift is below
+    ``BF16_DRIFT_FACTOR`` times the RMS bf16-vs-f32 distance."""
+    r = {"latent_drift": max_err(torch, lat16, lat16_ref),
+         "latent_drift_rms": rms_err(torch, lat16, lat16_ref),
+         "bf16_vs_f32_latent_distance": max_err(torch, lat16_ref, lat32_ref),
+         "bf16_vs_f32_latent_distance_rms": rms_err(torch, lat16_ref, lat32_ref)}
+    print(f"{what}: fused vs materialized bf16 latents max|Δ| {r['latent_drift']:.4g} "
+          f"rms {r['latent_drift_rms']:.4g}; materialized bf16 vs f32 max|Δ| "
+          f"{r['bf16_vs_f32_latent_distance']:.4g} rms "
+          f"{r['bf16_vs_f32_latent_distance_rms']:.4g}")
+    if not r["latent_drift_rms"] < BF16_DRIFT_FACTOR * r["bf16_vs_f32_latent_distance_rms"]:
+        raise RuntimeError(f"{what}: bf16 fused-edit RMS drift {r['latent_drift_rms']} is "
+                           f"not below {BF16_DRIFT_FACTOR:.4f} x the bf16-vs-f32 RMS "
+                           f"distance {r['bf16_vs_f32_latent_distance_rms']}")
+    return r
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -130,9 +182,10 @@ def card_line() -> str:
 
 
 def path_counts(K) -> dict:
-    """Every wrapper's launch count, K1's key-split merges and K2's folds."""
+    """Every wrapper's launch count, K1's key-split merges and K2's folds,
+    f32 and bf16."""
     return {**K.launch_counts(), "flash_merge": K.merge_launches(),
-            "fused_edit_fold": K.fold_launches()}
+            "fused_edit_fold": K.fold_launches(), **K.bf16_launch_counts()}
 
 
 def vae_merges(torch, pipe, batch: int) -> int:
@@ -259,20 +312,25 @@ def k2_cases(torch):
     return cases
 
 
-def k2_phases(torch, K, F):
+def k2_phases(torch, K, F, dtype=None):
     """K2 at its 13 main-path geometries (:func:`k2_cases`), each twice for
-    bitwise-equal outputs, within ``TC_TOL`` of the plain output's largest
+    bitwise-equal outputs, within ``TC_TOL`` (f32) or ``BF16_TOL`` (q, k
+    and v cast to ``dtype`` bf16) of the plain output's largest
     magnitude."""
     from p2p_tpu_torch.kernels.fused_edit import fold_operands
 
+    bf16 = dtype is not None
+    tag, tol = ("K2 bf16", BF16_TOL) if bf16 else ("K2", TC_TOL)
     rows = []
     for label, spec, ops, q, k, v, scale in k2_cases(torch):
+        if bf16:
+            q, k, v = (t.to(dtype) for t in (q, k, v))
         out = K.edit_attention(q, k, v, scale, spec, ops)
         torch.cuda.synchronize()
         want = K.edit_attention_plain(q, k, v, scale, spec, ops)
-        err = rel_err(torch, out, want, f"K2 {label}", TC_TOL)
+        err = rel_err(torch, out, want, f"{tag} {label}", tol)
         if not torch.equal(out, K.edit_attention(q, k, v, scale, spec, ops)):
-            raise RuntimeError(f"K2 {label}: two launches differ")
+            raise RuntimeError(f"{tag} {label}: two launches differ")
         # The work this run's operands need, folded: one pass (q k^T, then
         # p v) for each plain row and for each pass of the edit row that its
         # fold does not skip, and the fold's K x K product; and unfolded as
@@ -291,7 +349,8 @@ def k2_phases(torch, K, F):
         if not zero:
             edit_row += qk + (2.0 * pixels * keys ** 2 if spec.has_transform else 0)
         unfolded = heads * (3 * 2 * qk + edit_row)
-        nbytes = 4 * (2 * q.numel() + 2 * k.numel() + sum(t.numel() for t in ops.values()))
+        nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel())
+                  + 4 * sum(t.numel() for t in ops.values()))
         iters = 20 if pixels >= 1024 else 50
         call = lambda: K.edit_attention(q, k, v, scale, spec, ops)  # noqa: E731
         rows.append({
@@ -304,13 +363,49 @@ def k2_phases(torch, K, F):
             "library_ms": None,
             "sdpa_yardstick_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale), iters),
-            **bound(flops, nbytes, True), "flops": flops, "unfolded_flops": unfolded,
+            **bound(flops, nbytes, True, bf16), "flops": flops, "unfolded_flops": unfolded,
             "unfolded_bound_f32_ms": bound(unfolded, nbytes, False)["bound_ms"]})
         r = rows[-1]
-        print(f"K2 {label}: passes {r['edit_row_passes']}  kernel {r['ms']:.4f} ms "
+        print(f"{tag} {label}: passes {r['edit_row_passes']}  kernel {r['ms']:.4f} ms "
               f"(device {r['device_ms']:.4f})  plain {r['plain_ms']:.4f} ms  sdpa "
               f"yardstick {r['sdpa_yardstick_ms']:.4f} ms  {bound_text(r)}")
-    print("K2: two launches give bitwise-equal outputs at every geometry")
+    print(f"{tag}: two launches give bitwise-equal outputs at every geometry")
+    return rows
+
+
+def k1_bf16_phases(torch, K, F):
+    """K1 in bf16 at d = 40: the U-Net 64² self sites of the bf16 edit,
+    (4, 8, 4096, 40), then the ragged lengths S = 4100 and Sq = 300 with
+    Sk = 70; each within ``BF16_TOL`` of the bf16 plain version's largest
+    magnitude and bitwise-equal across two launches. SDPA in bf16 is the
+    yardstick."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    rows = []
+    for shape_q, sk in (((4, 8, 4096, 40), 4096), ((1, 2, 4100, 40), 4100),
+                        ((1, 2, 300, 40), 70)):
+        b, h, sq, d = shape_q
+        q = torch.randn(shape_q, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        scale = d ** -0.5
+        label = f"K1 bf16 {shape_q} Sk={sk}"
+        out = K.flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = rel_err(torch, out, K.flash_attention_plain(q, k, v, scale), label, BF16_TOL)
+        if not torch.equal(out, K.flash_attention(q, k, v, scale)):
+            raise RuntimeError(f"{label}: two launches differ")
+        if sq != 4096:
+            continue
+        rows.append({
+            "shape": list(shape_q), "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), 20),
+            "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 3),
+            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale), 20),
+            **bound(4.0 * b * h * sq * sk * d, 2 * 4 * q.numel(), True, bf16=True)})
+        r = rows[-1]
+        print(f"{label}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"sdpa bf16 {r['library_ms']:.4f} ms  {bound_text(r)}")
     return rows
 
 
@@ -463,8 +558,42 @@ def main_path(torch, K, pipe):
     print(f"main path: {secs:.3f} s per image pair with kernels "
           f"({secs / STEPS * 1e3:.2f} ms per step, VAE and text encoder "
           f"included), {secs_ref:.3f} s with kernels=None")
-    return counts, {"s_per_pair": secs, "s_per_pair_materialized": secs_ref,
-                    "latent_drift": drift}
+
+    # The same edit in bf16: K1 at d = 40 and K2 in bf16, the VAE decode in
+    # f32 (its K1 at d = 512 in f32).
+    def run16(kernels):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img, _, _, lat = text2image(pipe, PROMPTS, ctrl, num_steps=STEPS,
+                                    latent=x_t, kernels=kernels, device="cuda",
+                                    return_latents=True, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return img, lat, time.perf_counter() - t
+
+    run16(KernelConfig())                    # warm-up: bf16 weights, cuDNN
+    K.reset_launch_counts()
+    img16, lat16, secs16 = run16(KernelConfig())
+    counts16 = path_counts(K)
+    want16 = {**dict.fromkeys(counts16, 0), "flash_attn_bf16": STEPS * 5,
+              "flash_attn": 1, "fused_edit_bf16": STEPS * 22,
+              "fused_edit_fold_bf16": STEPS * 22, "flash_merge": vae_merges(torch, pipe, 2)}
+    if counts16 != want16:
+        raise RuntimeError(f"bf16 launch counts {counts16}, expected {want16}")
+    if (img16.shape != (2, 512, 512, 3) or lat16.dtype != torch.bfloat16
+            or not bool(torch.isfinite(lat16).all())):
+        raise RuntimeError(f"bf16 images {tuple(img16.shape)} or latents "
+                           f"{lat16.dtype} non-finite")
+    _, lat16_ref, secs16_ref = run16(None)
+    print(f"main path bf16: launches {counts16}")
+    drift16 = bf16_drift(torch, "main path bf16", lat16, lat16_ref, lat_ref)
+    print(f"main path bf16: {secs16:.3f} s per image pair with kernels "
+          f"({secs16 / STEPS * 1e3:.2f} ms per step), {secs16_ref:.3f} s with "
+          f"kernels=None; f32 {secs:.3f} s")
+    return counts, counts16, {
+        "s_per_pair": secs, "s_per_pair_materialized": secs_ref,
+        "latent_drift": drift, "ms_per_step": secs / STEPS * 1e3,
+        "bf16": {"s_per_pair": secs16, "s_per_pair_materialized": secs16_ref,
+                 "ms_per_step": secs16 / STEPS * 1e3, **drift16}}
 
 
 def inversion_path(torch, K, pipe):
@@ -550,10 +679,18 @@ def inversion_path(torch, K, pipe):
     return art, image, stats
 
 
-def replay_path(torch, K, pipe, art, image):
+def replay_path(torch, K, pipe, art, image, f32_latents=None):
     """The replay edit of the inversion: Replace + LocalBlend + Reweight with
     the optimized embeddings, with and without the kernels, and the source
-    row's reconstruction against the raw ``""`` uncond."""
+    row's reconstruction against the raw ``""`` uncond. With the f32
+    materialized replay's latents ``f32_latents``, the same in bf16 (the
+    f32 artifact's embeddings cast at each step): its kernels are the bf16
+    K1 and K2, its VAE decode the f32 K1, and its drift is held as the main
+    path's (:func:`bf16_drift`). Returns the launch counts, the
+    materialized run's latents and the numbers."""
+    bf16 = f32_latents is not None
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tag = "replay bf16" if bf16 else "replay"
     from p2p_tpu_torch import KernelConfig, make_controller, text2image
     from p2p_tpu_torch.kernels.dispatch import site_variant
     from p2p_tpu_torch.models import vae as vae_mod
@@ -574,43 +711,50 @@ def replay_path(torch, K, pipe, art, image):
         t = time.perf_counter()
         img, _, _, lat = text2image(pipe, prompts, ctrl, num_steps=STEPS, latent=x_t,
                                     uncond_embeddings=uncond, kernels=kernels,
-                                    device="cuda", return_latents=True)
+                                    device="cuda", return_latents=True, dtype=dtype)
         torch.cuda.synchronize()
         return img, lat, time.perf_counter() - t
 
     K.reset_launch_counts()
     img, lat, secs = run(KernelConfig(), ups)
     counts = path_counts(K)
-    want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * n_k1 + 1,
-            "fused_edit": STEPS * n_k2, "fused_edit_fold": STEPS * n_k2,
-            "flash_merge": vae_merges(torch, pipe, 2)}
+    if bf16:
+        want = {**dict.fromkeys(counts, 0), "flash_attn_bf16": STEPS * n_k1,
+                "flash_attn": 1, "fused_edit_bf16": STEPS * n_k2,
+                "fused_edit_fold_bf16": STEPS * n_k2}
+    else:
+        want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * n_k1 + 1,
+                "fused_edit": STEPS * n_k2, "fused_edit_fold": STEPS * n_k2}
+    want["flash_merge"] = vae_merges(torch, pipe, 2)
     if counts != want:
-        raise RuntimeError(f"replay launch counts {counts}, expected {want}")
+        raise RuntimeError(f"{tag} launch counts {counts}, expected {want}")
     size = pipe.config.image_size
     if img.shape != (2, size, size, 3) or not bool(torch.isfinite(lat).all()):
-        raise RuntimeError(f"replay images {tuple(img.shape)} or non-finite latents")
+        raise RuntimeError(f"{tag} images {tuple(img.shape)} or non-finite latents")
     _, lat_ref, secs_ref = run(None, ups)
-    drift = max_err(torch, lat, lat_ref)
-    if drift > DRIFT_TOL:
-        raise RuntimeError(f"replay latents drift {drift} > {DRIFT_TOL}")
+    if bf16:
+        stats = bf16_drift(torch, tag, lat, lat_ref, f32_latents)
+    else:
+        stats = {"latent_drift": max_err(torch, lat, lat_ref)}
+        if stats["latent_drift"] > DRIFT_TOL:
+            raise RuntimeError(f"replay latents drift {stats['latent_drift']} > {DRIFT_TOL}")
     _, lat_raw, _ = run(KernelConfig(), None)
     with torch.no_grad():
         target = vae_mod.encode(pipe.vae, pipe.config.vae, torch.from_numpy(
             image.astype("float32") / 127.5 - 1.0)[None].cuda())
-    err_opt = torch.mean((lat[0] - target[0]) ** 2).item()
-    err_raw = torch.mean((lat_raw[0] - target[0]) ** 2).item()
+    err_opt = torch.mean((lat[0].float() - target[0]) ** 2).item()
+    err_raw = torch.mean((lat_raw[0].float() - target[0]) ** 2).item()
     if not err_opt < err_raw:
-        raise RuntimeError(f"null-text invariant: source-row MSE to the encoded "
-                           f"image {err_opt} with the optimized embeddings, "
-                           f"{err_raw} with the raw uncond")
-    print(f"replay: launches {counts} ({n_k1} K1 and {n_k2} K2 sites); latents "
-          f"max|Δ| vs kernels=None {drift:.3g}; {secs:.3f} s with kernels, "
-          f"{secs_ref:.3f} s without")
-    print(f"replay: source-row MSE to the encoded image {err_opt:.6g} optimized "
+        raise RuntimeError(f"{tag}: null-text invariant: source-row MSE to the "
+                           f"encoded image {err_opt} with the optimized "
+                           f"embeddings, {err_raw} with the raw uncond")
+    print(f"{tag}: launches {counts} ({n_k1} K1 and {n_k2} K2 sites); latents "
+          f"max|Δ| vs kernels=None {stats['latent_drift']:.3g}; {secs:.3f} s with "
+          f"kernels, {secs_ref:.3f} s without")
+    print(f"{tag}: source-row MSE to the encoded image {err_opt:.6g} optimized "
           f"vs {err_raw:.6g} raw uncond")
-    return counts, {"s_per_pair": secs, "s_per_pair_materialized": secs_ref,
-                    "latent_drift": drift, "mse_optimized": err_opt,
-                    "mse_raw": err_raw}
+    return counts, lat_ref, {"s_per_pair": secs, "s_per_pair_materialized": secs_ref,
+                             "mse_optimized": err_opt, "mse_raw": err_raw, **stats}
 
 
 def kernel_entry(name, source, replaces, launches, rows, **extra):
@@ -662,13 +806,17 @@ def main() -> int:
     k1 = k1_phases(torch, K, F)
     k2 = k2_phases(torch, K, F)
     k34 = k34_phases(torch, K, F)
+    k1_bf16 = k1_bf16_phases(torch, K, F)
+    k2_bf16 = k2_phases(torch, K, F, torch.bfloat16)
     t0 = time.perf_counter()
     pipe = random_pipeline(SD14, HashWordTokenizer(), "cuda", seed=0)
     torch.cuda.synchronize()
     print(f"SD-1.4 random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
-    counts, path = main_path(torch, K, pipe)
+    counts, counts16, path = main_path(torch, K, pipe)
     art, image, inversion = inversion_path(torch, K, pipe)
-    replay_counts, replay = replay_path(torch, K, pipe, art, image)
+    replay_counts, replay_lat, replay = replay_path(torch, K, pipe, art, image)
+    replay16_counts, _, replay16 = replay_path(torch, K, pipe, art, image, replay_lat)
+    replay["bf16"] = replay16
     inv_counts = inversion["launches"]
     result = {"kernels": [
         kernel_entry("flash_attn", "p2p_tpu_torch/csrc/flash_attn.cu",
@@ -705,8 +853,25 @@ def main() -> int:
         kernel_entry("flash_attn_bwd_dkv", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
                      "p2p_tpu/models/nn.py:308", inv_counts["flash_attn_bwd_dkv"],
                      [k34["K4_dkv"]]),
+        kernel_entry("flash_attn_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+                     "p2p_tpu/models/nn.py:330", counts16["flash_attn_bf16"], k1_bf16,
+                     units="tensor cores, bf16 (flash_d40_bf16_kernel, attn_bf16.cuh)",
+                     replay_launches=replay16_counts["flash_attn_bf16"],
+                     note="K1 at d = 40 with bf16 q, k, v and output; library_ms "
+                          "is SDPA in bf16"),
+        kernel_entry("fused_edit_bf16", "p2p_tpu_torch/csrc/fused_edit.cu",
+                     "p2p_tpu/kernels/fused_edit.py:210", counts16["fused_edit_bf16"],
+                     k2_bf16,
+                     fold_launches={"main_path": counts16["fused_edit_fold_bf16"],
+                                    "replay": replay16_counts["fused_edit_fold_bf16"]},
+                     replay_launches=replay16_counts["fused_edit_bf16"],
+                     units="tensor cores, bf16 (edit_attn_bf16_kernel, attn_bf16.cuh), "
+                           "after the fold in f32 writing bf16 (fold_kernel<bf16>)",
+                     note="as fused_edit, with bf16 q, k, v, output and folded "
+                          "values; sdpa_yardstick_ms is SDPA in bf16"),
     ], "main_path": path, "inversion": inversion, "replay": replay,
-        "replay_launches": replay_counts, "card": card}
+        "replay_launches": replay_counts, "replay_bf16_launches": replay16_counts,
+        "card": card}
     # K3 + K4 per inner iteration from the kernel phase's times, against the
     # measured inner iteration.
     n_grad = inv_counts["flash_attn_residuals"] // inversion["inner_iterations"]

@@ -73,9 +73,30 @@
 // bound it (0.013 ms at 3.35 TB/s; the operations take 0.010 ms in 3xTF32).
 // The smaller sites have at most a few hundred blocks and end near launch
 // latency. No atomics: two launches give the same bits.
+//
+// In bf16 (q, k, v and out bf16; a bf16 edit's K2, at the same geometries),
+// a second entry runs the same fold and the same passes: fold_kernel reads
+// bf16 v, folds in f32 and writes V1 and V2 as bf16 pairs, hi = bf16(x) and
+// lo = bf16(x - hi) (rounded to bf16 alone, a fold with a fractional
+// transform over 100 keys was 1.005e-2 of the largest magnitude from the JAX
+// kernel, past the 1e-2 bar; as a pair, 5.0e-3);
+// edit_attn_bf16_kernel runs each pass as one bf16 tensor-core pass
+// (attn_bf16.cuh, as K1's bf16 kernel), whose q k^T takes the exact
+// products of the bf16 q and k in f32 (the JAX kernel upcasts them to f32
+// and multiplies there: the same values) and whose normalized P is rounded
+// to bf16 before P V, as the JAX kernel rounds its probability rows (the
+// row's max and sum come first: in the same step at a cross site, whose
+// keys are one step, by a pass of q k^T before the P V pass at a self site).
+// An edit row's pass takes P V_hi + P V_lo, two products with the same P.
+// Where the JAX kernel rounds the edited P once, the fold rounds the base
+// row's P and the row's own P; an edit row with two passes rounds the first
+// pass's output once more before the second adds to it. Keys stream 80 a step up to D = 80 (a cross site's 77 keys are one
+// step), 64 at D = 160, where one warp owns all 160 output columns (80 f32
+// accumulators a thread; bf16 operands need no split parts).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_bf16.cuh"
 #include "mma_tf32.cuh"
 
 using namespace p2p;
@@ -436,14 +457,39 @@ edit_attn_kernel(EditArgs a) {
   }
 }
 
+// The values' type of the fold: f32, or bf16 read and written as four
+// values at a time and folded in f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+// Four folded values: f32 as they are; bf16 as hi = bf16(x) at p and
+// lo = bf16(x - hi) at the same offset from lo.
+__device__ __forceinline__ void store4(float* p, float*, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(bf16* p, bf16* lo, float4 x) {
+  const uint2 h = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+  *reinterpret_cast<uint2*>(p) = h;
+  *reinterpret_cast<uint2*>(lo) =
+      make_uint2(pack_bf16(x.x - bf16_lo(h.x), x.y - bf16_hi(h.x)),
+                 pack_bf16(x.z - bf16_lo(h.y), x.w - bf16_hi(h.y)));
+}
+
+template <class V>
 struct FoldArgs {
-  const float* v;           // (2B, H, K, D)
+  const V* v;               // (2B, H, K, D)
   const float* transform;   // (E, Kp, Kp) or null
   const float* refine_mix;  // (E, Kp) or null
   const float* equalizer;   // (E, Kp) or null
   const float* blend;       // (E, Kp)
-  float* v1;                // (E, H, K, D)
-  float* v2;                // (E, H, K, D)
+  V* v1;                    // (E, H, K, D)
+  V* v2;                    // (E, H, K, D)
+  V* v1lo;                  // bf16: V1's and V2's low parts; f32: null
+  V* v2lo;
   int* flags;               // (E, 2)
   int heads, keys, d, kp, b_half;
 };
@@ -455,7 +501,8 @@ __host__ __device__ constexpr int ceil4(int x) { return (x + 3) / 4 * 4; }
 
 // grid (D / FOLD_COLS, heads, E): columns [d0, d0 + 8) of V1 and V2 for one
 // (edit row, head). V1 = sum_n M[w][n] (c1[n] v[n]) in f32, n in order.
-__global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
+template <class V>
+__global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs<V> a) {
   extern __shared__ __align__(16) float fs[];
   const int k4 = ceil4(a.keys);
   float* cv = fs;                  // k4 x FOLD_COLS: c1[n] v[n][d0 + j], 0 past K
@@ -481,7 +528,7 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
     a.flags[2 * e] = z1;
     a.flags[2 * e + 1] = z2;
   }
-  const float* ve = a.v + ((size_t)(a.b_half + 1 + e) * a.heads + h) * a.keys * a.d + d0;
+  const V* ve = a.v + ((size_t)(a.b_half + 1 + e) * a.heads + h) * a.keys * a.d + d0;
   const size_t wo = ((size_t)e * a.heads + h) * a.keys * a.d + d0;
   const bool product = a.transform != nullptr && !z1;  // uniform
   auto scaled = [](float c, float4 x) { return make_float4(c * x.x, c * x.y, c * x.z, c * x.w); };
@@ -493,12 +540,12 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
       if (product) *reinterpret_cast<float4*>(cv + 4 * i) = make_float4(0.f, 0.f, 0.f, 0.f);
       continue;
     }
-    const float4 x = *reinterpret_cast<const float4*>(ve + at);
-    if (!z2) *reinterpret_cast<float4*>(a.v2 + wo + at) = scaled(c2[n], x);
+    const float4 x = load4(ve + at);
+    if (!z2) store4(a.v2 + wo + at, a.v2lo + wo + at, scaled(c2[n], x));
     if (product)
       *reinterpret_cast<float4*>(cv + 4 * i) = scaled(c1[n], x);
     else if (!z1)
-      *reinterpret_cast<float4*>(a.v1 + wo + at) = scaled(c1[n], x);
+      store4(a.v1 + wo + at, a.v1lo + wo + at, scaled(c1[n], x));
   }
   if (!product) return;
   __syncthreads();
@@ -526,9 +573,9 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
         acc[7] = fmaf(mn[u], x1.w, acc[7]);
       }
     }
-    float4* out = reinterpret_cast<float4*>(a.v1 + wo + (size_t)w * a.d);
-    out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    const size_t at = wo + (size_t)w * a.d;
+    store4(a.v1 + at, a.v1lo + at, make_float4(acc[0], acc[1], acc[2], acc[3]));
+    store4(a.v1 + at + 4, a.v1lo + at + 4, make_float4(acc[4], acc[5], acc[6], acc[7]));
   }
 }
 
@@ -548,13 +595,14 @@ cudaError_t configure(const void* kern, bool carveout, unsigned& done) {
   return err;
 }
 
-int launch_fold(const FoldArgs& f, int edits, cudaStream_t s) {
+template <class V>
+int launch_fold(const FoldArgs<V>& f, int edits, cudaStream_t s) {
   const size_t smem = sizeof(float) * ((size_t)ceil4(f.keys) * FOLD_COLS + 2 * (size_t)f.keys);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   static unsigned done = 0;
-  cudaError_t err = configure(reinterpret_cast<const void*>(fold_kernel), false, done);
+  cudaError_t err = configure(reinterpret_cast<const void*>(fold_kernel<V>), false, done);
   if (err != cudaSuccess) return err;
-  fold_kernel<<<dim3(f.d / FOLD_COLS, f.heads, edits), FOLD_THREADS, smem, s>>>(f);
+  fold_kernel<V><<<dim3(f.d / FOLD_COLS, f.heads, edits), FOLD_THREADS, smem, s>>>(f);
   return cudaGetLastError();
 }
 
@@ -567,6 +615,78 @@ int launch_attn(const EditArgs& a, int two_b, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   dim3 grid((a.pixels + T::ROWS - 1) / T::ROWS, a.heads, two_b);
   edit_attn_kernel<D><<<grid, NT, T::smem(), s>>>(a);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ bf16
+
+struct EditArgsBf16 {
+  const bf16* q;      // (2B, H, P, D)
+  const bf16* k;      // (2B, H, K, D)
+  const bf16* v;      // (2B, H, K, D)
+  const bf16* v1;     // (E, H, K, D): M diag(c1) v_e, high parts
+  const bf16* v2;     // (E, H, K, D): diag(c2) v_e, high parts
+  const bf16* v1lo;   // their low parts
+  const bf16* v2lo;
+  const int* flags;   // (E, 2): c1 == 0, c2 == 0 on every key
+  bf16* o;            // (2B, H, P, D)
+  int heads, pixels, keys, b_half;
+  float scale2;       // scale * log2(e)
+};
+
+// Keys a step of the bf16 passes at head dim D.
+template <int D>
+struct TileBf16 {
+  static constexpr int BS = D <= 80 ? 80 : 64;
+  using A = AttnBf16<D, BS, WARPS, true>;
+};
+
+// grid (query tiles of 128 rows, heads, 2B), NT threads: the rows' passes
+// as edit_attn_kernel chooses them.
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+edit_attn_bf16_kernel(EditArgsBf16 a) {
+  using A = typename TileBf16<D>::A;
+  extern __shared__ __align__(16) unsigned char smem_eb[];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * A::ROWS;
+  const size_t qs = (size_t)a.pixels * D, ks = (size_t)a.keys * D;
+  const size_t row = (size_t)b * a.heads + h;
+  bf16* oh = a.o + row * qs;
+  const bool edit = b > a.b_half;
+  const int e = b - a.b_half - 1;
+  const bool base = edit && a.flags[2 * e] == 0;
+  const bool own = !edit || a.flags[2 * e + 1] == 0;
+  const size_t brow = (size_t)a.b_half * a.heads + h;
+  const size_t erow = (size_t)e * a.heads + h;
+  const int npass = base + own;
+  for (int p = 0; p < npass; ++p) {
+    const bool bp = base && p == 0;
+    const size_t qk = bp ? brow : row;
+    const bf16* vh = !edit ? a.v + row * ks : (bp ? a.v1 : a.v2) + erow * ks;
+    const bf16* vl = !edit ? nullptr : (bp ? a.v1lo : a.v2lo) + erow * ks;
+    attend_bf16<D, TileBf16<D>::BS, WARPS, true, true>(
+                                          a.q + qk * qs, a.k + qk * ks, vh, vl, oh, q0,
+                                          a.pixels, a.keys, a.scale2, p > 0,
+                                          reinterpret_cast<bf16*>(smem_eb), nullptr,
+                                          nullptr);
+  }
+  if (npass == 0) {  // every key's weight is 0
+    for (int i = threadIdx.x; i < A::ROWS * D; i += NT)
+      if (q0 + i / D < a.pixels) oh[(size_t)(q0 + i / D) * D + i % D] = __float2bfloat16(0.f);
+  }
+}
+
+template <int D>
+int launch_attn_bf16(const EditArgsBf16& a, int two_b, cudaStream_t s) {
+  using A = typename TileBf16<D>::A;
+  static_assert(A::SMEM <= SMEM_LIMIT, "shared memory");
+  static unsigned done = 0;
+  cudaError_t err =
+      configure(reinterpret_cast<const void*>(edit_attn_bf16_kernel<D>), true, done);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.pixels + A::ROWS - 1) / A::ROWS, a.heads, two_b);
+  edit_attn_bf16_kernel<D><<<grid, NT, A::SMEM, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -588,8 +708,8 @@ extern "C" int p2p_fused_edit_fwd(const float* q, const float* k, const float* v
   if (b_half < 2 || d % FOLD_COLS != 0 || keys < 1 || ceil4(keys) > kp || kp % 4 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const FoldArgs f{v, transform, refine_mix, equalizer, blend, v1, v2, flags,
-                   heads, keys, d, kp, b_half};
+  const FoldArgs<float> f{v, transform, refine_mix, equalizer, blend, v1, v2, nullptr,
+                          nullptr, flags, heads, keys, d, kp, b_half};
   int err = launch_fold(f, b_half - 1, s);
   if (err != cudaSuccess) return err;
   const EditArgs a{q, k, v, v1, v2, flags, o, heads, pixels, keys, b_half,
@@ -601,6 +721,41 @@ extern "C" int p2p_fused_edit_fwd(const float* q, const float* k, const float* v
     case 64: return launch_attn<64>(a, two_b, s);
     case 80: return launch_attn<80>(a, two_b, s);
     case 160: return launch_attn<160>(a, two_b, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 entry: q, k, v and out bf16; v1, v2, v1lo and v2lo bf16 (E, H,
+// K, D), the fold's V1 and V2 as hi/lo pairs; everything else as above.
+extern "C" int p2p_fused_edit_fwd_bf16(const void* q, const void* k, const void* v,
+                                       const float* transform, const float* refine_mix,
+                                       const float* equalizer, const float* blend,
+                                       void* o, void* v1, void* v2, void* v1lo,
+                                       void* v2lo, int* flags,
+                                       int two_b, int heads, int pixels, int keys,
+                                       int d, int kp, float scale, void* stream) {
+  const int b_half = two_b / 2;
+  if (b_half < 2 || d % FOLD_COLS != 0 || keys < 1 || ceil4(keys) > kp || kp % 4 != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const FoldArgs<bf16> f{static_cast<const bf16*>(v), transform, refine_mix, equalizer,
+                         blend, static_cast<bf16*>(v1), static_cast<bf16*>(v2),
+                         static_cast<bf16*>(v1lo), static_cast<bf16*>(v2lo), flags,
+                         heads, keys, d, kp, b_half};
+  int err = launch_fold(f, b_half - 1, s);
+  if (err != cudaSuccess) return err;
+  const EditArgsBf16 a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<const bf16*>(v1),
+                       static_cast<const bf16*>(v2), static_cast<const bf16*>(v1lo),
+                       static_cast<const bf16*>(v2lo), flags, static_cast<bf16*>(o),
+                       heads, pixels, keys, b_half, scale * LOG2E};
+  switch (d) {
+    case 16: return launch_attn_bf16<16>(a, two_b, s);
+    case 32: return launch_attn_bf16<32>(a, two_b, s);
+    case 40: return launch_attn_bf16<40>(a, two_b, s);
+    case 64: return launch_attn_bf16<64>(a, two_b, s);
+    case 80: return launch_attn_bf16<80>(a, two_b, s);
+    case 160: return launch_attn_bf16<160>(a, two_b, s);
     default: return cudaErrorInvalidValue;
   }
 }

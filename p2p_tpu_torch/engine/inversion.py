@@ -214,7 +214,10 @@ def invert(pipe: Pipeline, image, prompt: str, *, num_steps: int = 50,
             "embedding at every DDIM step, which CFG truncation would drop. "
             "Run invert() with gate=None.")
     if dtype != torch.float32:
-        raise NotImplementedError("p2p_tpu_torch inverts in float32 only")
+        raise NotImplementedError(
+            "p2p_tpu_torch inverts in float32 only: bf16 inversion needs K3, "
+            "K4 and K1 at d = 512 in bf16 and comes in the next slice of the "
+            "port; sample in bf16 with text2image(dtype=torch.bfloat16)")
     device = resolve_device(device)
     if pipe.device.type != device.type:
         raise ValueError(f"the pipeline's weights are on {pipe.device}, "

@@ -12,13 +12,20 @@ substitutes each step's optimized uncond embedding
 
 Entry points run on CUDA unless ``device="cpu"`` is asked for; with no GPU
 and no ``device`` they raise. On CUDA, TF32 is switched off for matmuls and
-convolutions: the JAX reference is f32 throughout.
+convolutions: the JAX reference's f32 is full f32.
+
+``text2image(dtype=torch.bfloat16)`` runs the text encoder and the U-Net in
+bf16 as the JAX package does (``p2p_tpu/engine/sampler.py``): their weights
+cast once per pipeline (:meth:`Pipeline.weights`), the attention
+probabilities, the store and the edit in f32, classifier-free guidance
+promoted to f32 by the f32 guidance scale, the DDIM step in f32 on a bf16
+carry, and the VAE decode in f32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +36,7 @@ from ..controllers.base import (
     apply_step_callback,
     init_store_state,
 )
+from ..models import checkpoint as ck
 from ..models import vae as vae_mod
 from ..models.checkpoint import StateDict
 from ..models.config import PipelineConfig, unet_layout
@@ -67,10 +75,32 @@ class Pipeline:
     text_encoder: StateDict
     vae: StateDict
     tokenizer: Tokenizer
+    _cast: Dict[torch.dtype, Tuple[StateDict, StateDict]] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:
         return next(iter(self.unet.values())).device
+
+    def weights(self, dtype) -> Tuple[StateDict, StateDict]:
+        """The U-Net's and the text encoder's weights for compute in
+        ``dtype``: every linear, convolution and embedding tensor cast to
+        ``dtype`` once and kept (the JAX package casts at each use, which
+        gives the same values), the norms' scales and biases left f32, as
+        both norm paths read them in f32. The f32 weights themselves for
+        f32."""
+        if dtype == torch.float32:
+            return self.unet, self.text_encoder
+        if dtype not in self._cast:
+            def cast(sd, entries):
+                keep = ck.norm_names(entries)
+                return {n: t if n in keep else t.to(dtype) for n, t in sd.items()}
+
+            cfg = self.config
+            self._cast[dtype] = (cast(self.unet, ck.unet_entries(cfg.unet)),
+                                 cast(self.text_encoder,
+                                      ck.text_encoder_entries(cfg.text)))
+        return self._cast[dtype]
 
     @property
     def latent_shape(self) -> Tuple[int, int, int]:
@@ -92,14 +122,16 @@ def random_pipeline(config: PipelineConfig, tokenizer: Tokenizer, device,
                     tokenizer=tokenizer)
 
 
-def encode_prompts(pipe: Pipeline, prompts: Sequence[str]) -> torch.Tensor:
-    """Tokenize and encode to ``(B, L, D)`` hidden states."""
+def encode_prompts(pipe: Pipeline, prompts: Sequence[str],
+                   dtype=torch.float32) -> torch.Tensor:
+    """Tokenize and encode to ``(B, L, D)`` hidden states in ``dtype``."""
     tok = pipe.tokenizer
     max_len = pipe.config.unet.context_len
     pad = getattr(tok, "pad_token_id", tok.eos_token_id)
     ids = torch.tensor([pad_ids(tok.encode(p), max_len, pad) for p in prompts],
                        dtype=torch.int64, device=pipe.device)
-    return apply_text_encoder(pipe.text_encoder, pipe.config.text, ids)
+    return apply_text_encoder(pipe.weights(dtype)[1], pipe.config.text, ids,
+                              dtype=dtype)
 
 
 def init_latent(latent: Optional[torch.Tensor], shape: Tuple[int, ...],
@@ -124,11 +156,15 @@ def denoise(pipe: Pipeline, context: torch.Tensor, latents: torch.Tensor,
             uncond_embeddings: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, StoreState]:
     """The denoising loop. ``context``: ``(2B, L, D)`` as
-    ``[uncond; cond]``; ``latents``: ``(B, H, W, C)``;
+    ``[uncond; cond]``; ``latents``: ``(B, H, W, C)``, in the compute dtype;
     ``uncond_embeddings``: ``(T, 1, L, D)`` or None — step i's row replaces
     the uncond half of the context, broadcast over B. Returns the final
-    latents and the store state."""
+    latents and the store state.
+
+    Guidance is taken as the JAX package takes it with its f32 guidance
+    scale: the difference in the compute dtype, then promoted to f32."""
     cfg = pipe.config
+    unet_sd = pipe.weights(latents.dtype)[0]
     layout = layout or unet_layout(cfg.unet)
     b = latents.shape[0]
     sched = sched_mod.schedule_from_config(num_steps, cfg.scheduler,
@@ -141,11 +177,11 @@ def denoise(pipe: Pipeline, context: torch.Tensor, latents: torch.Tensor,
             u = uncond_embeddings[step].to(context.dtype)
             ctx = torch.cat([u.expand_as(context[:b]), context[b:]], dim=0)
         latent_in = torch.cat([latents] * 2, dim=0)
-        eps, state = apply_unet(pipe.unet, cfg.unet, latent_in, t, ctx,
+        eps, state = apply_unet(unet_sd, cfg.unet, latent_in, t, ctx,
                                 layout=layout, controller=controller,
                                 state=state, step=step, kernels=kernels)
         eps_uncond, eps_text = eps[:b], eps[b:]
-        eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+        eps = eps_uncond.float() + guidance_scale * (eps_text.float() - eps_uncond.float())
         eps = sched_mod.to_epsilon(sched, eps, t, latents)
         latents = sched_mod.ddim_step(sched, eps, t, latents)
         latents = apply_step_callback(controller, layout, state, latents, step)
@@ -184,16 +220,20 @@ def text2image(
     to the fused-edit kernel. ``negative_prompt`` replaces the ``""``
     unconditional text. ``uncond_embeddings`` ``(T, 1, L, D)`` (a null-text
     inversion's, T = ``num_steps``, DDIM only) replaces it step by step
-    instead. Phase gating (``gate``) and reuse schedules (``schedule``) are
-    not ported yet and raise."""
+    instead; each step's row is cast to ``dtype``. ``dtype`` is the compute
+    dtype of the text encoder and the U-Net, ``torch.float32`` or
+    ``torch.bfloat16``; the final latents come back in it, and the VAE
+    decodes them in f32. Phase gating (``gate``) and reuse schedules
+    (``schedule``) are not ported yet and raise."""
     if gate is not None or schedule is not None:
         raise NotImplementedError("gate / schedule are not ported to "
                                   "p2p_tpu_torch yet")
     if negative_prompt and uncond_embeddings is not None:
         raise ValueError("negative_prompt and uncond_embeddings are mutually "
                          "exclusive (null-text already optimized the uncond)")
-    if dtype != torch.float32:
-        raise NotImplementedError("p2p_tpu_torch samples in float32 only")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"p2p_tpu_torch samples in float32 or "
+                                  f"bfloat16, not {dtype}")
     device = resolve_device(device)
     if pipe.device.type != device.type:
         raise ValueError(f"the pipeline's weights are on {pipe.device}, "
@@ -216,15 +256,16 @@ def text2image(
 
     with torch.no_grad():
         context = torch.cat([
-            encode_prompts(pipe, [negative_prompt or ""] * len(prompts)),
-            encode_prompts(pipe, prompts)], dim=0)
+            encode_prompts(pipe, [negative_prompt or ""] * len(prompts), dtype),
+            encode_prompts(pipe, prompts, dtype)], dim=0)
         x_t, latents = init_latent(latent, pipe.latent_shape, generator,
-                                   len(prompts), device=device)
+                                   len(prompts), dtype=dtype, device=device)
         latents, state = denoise(pipe, context, latents, controller,
                                  num_steps=num_steps, guidance_scale=gs,
                                  scheduler=scheduler, layout=layout,
                                  kernels=kernels,
                                  uncond_embeddings=uncond_embeddings)
-        images = vae_mod.to_uint8(vae_mod.decode(pipe.vae, cfg.vae, latents))
+        images = vae_mod.to_uint8(vae_mod.decode(pipe.vae, cfg.vae,
+                                                 latents.float()))
     out = (images, x_t, state if return_store else ())
     return out + (latents,) if return_latents else out

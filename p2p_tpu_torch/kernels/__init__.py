@@ -18,7 +18,9 @@ launches in ``<wrapper>.launches``; K1's and K3's wrappers also count the
 merge kernel their d = 512 calls launch when they split the keys, in
 ``<wrapper>.merge_launches`` (:func:`merge_launches`), and K2's wrapper the
 fold kernel it launches before the main kernel, in
-``edit_attention.fold_launches`` (:func:`fold_launches`).
+``edit_attention.fold_launches`` (:func:`fold_launches`). K1 and K2 also
+take bf16 operands (K1 at d = 40); those launches count apart
+(:func:`bf16_launch_counts`).
 """
 
 from .dispatch import (
@@ -67,11 +69,22 @@ def fold_launches() -> int:
     return edit_attention.fold_launches
 
 
+def bf16_launch_counts() -> dict:
+    """``{kernel: launches}`` of the bf16 kernels: K1 at d = 40, K2 and its
+    fold."""
+    return {"flash_attn_bf16": flash_attention.bf16_launches,
+            "fused_edit_bf16": edit_attention.bf16_launches,
+            "fused_edit_fold_bf16": edit_attention.bf16_fold_launches}
+
+
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
+    flash_attention.bf16_launches = 0
     flash_attention.merge_launches = 0
     edit_attention.launches = 0
     edit_attention.fold_launches = 0
+    edit_attention.bf16_launches = 0
+    edit_attention.bf16_fold_launches = 0
     flash_attention_residuals.launches = 0
     flash_attention_residuals.merge_launches = 0
     flash_attention_bwd_dq.launches = 0
@@ -87,6 +100,7 @@ __all__ = [
     "flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq",
     "flash_attention_bwd_dq_plain", "FlashAttentionFunction",
     "edit_attention", "edit_attention_plain",
-    "fused_site_attention", "fold_launches", "launch_counts", "merge_launches",
+    "fused_site_attention", "bf16_launch_counts", "fold_launches",
+    "launch_counts", "merge_launches",
     "reset_launch_counts",
 ]

@@ -21,6 +21,13 @@ VAE's mid attention ``(2, 1, 4096, 512)`` (no split) and ``(1, 1, 4096,
 512)`` (two splits, in the inversion's encode and decode); K3 at ``(1, 8,
 4096, 40)`` in the null-text inversion's gradient steps.
 
+K1 also takes bf16 q, k and v at d = 40 (the U-Net's 64²-pixel self sites
+of a bf16 edit): ``flash_d40_bf16_kernel``, one bf16 tensor-core pass with
+f32 accumulation, P rounded to bf16 before P·V as the JAX library kernel
+rounds it (``p.astype(v.dtype)``), the output rounded to bf16 once. Its
+launches count apart, in ``flash_attention.bf16_launches``, so the f32
+counts stay what the f32 paths give.
+
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its own launches in
 ``.launches``, and the merges of its split calls in ``.merge_launches``.
@@ -35,19 +42,23 @@ import torch
 
 from . import build
 
-#: Head dims the CUDA kernel is instantiated for.
+#: Head dims the CUDA kernel is instantiated for, in f32 and in bf16.
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 160, 512)
+SUPPORTED_HEAD_DIMS_BF16 = (40,)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float, chunk: int = 1024) -> torch.Tensor:
-    """Materialized f32 softmax attention, chunked over queries so the
-    (S, S) scores exist only one chunk of rows at a time."""
+    """Materialized softmax attention in f32, chunked over queries so the
+    (S, S) scores exist only one chunk of rows at a time. The probabilities
+    are rounded to ``v``'s dtype before P·V (as the JAX package rounds
+    them; the identity in f32) and the output once at the end."""
     outs = []
     for s0 in range(0, q.shape[-2], chunk):
         qc = q[..., s0:s0 + chunk, :].float()
         probs = torch.softmax(
             torch.einsum("bhqd,bhkd->bhqk", qc, k.float()) * scale, dim=-1)
+        probs = probs.to(v.dtype).float()
         outs.append(torch.einsum("bhqk,bhkd->bhqd", probs, v.float()))
     return torch.cat(outs, dim=-2).to(v.dtype)
 
@@ -114,6 +125,10 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.p2p_flash_attn_fwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     occ = lib.p2p_flash_attn_d40_occupancy
     occ.argtypes = [ctypes.POINTER(ctypes.c_int)]
     occ.restype = ctypes.c_int
@@ -131,16 +146,19 @@ def d40_occupancy() -> tuple:
     return blocks, warps.value
 
 
-def check_operands(what: str, tensors, head_dims) -> None:
-    """Raise unless every tensor is a contiguous, 16-byte-aligned f32 CUDA
-    tensor on the first one's device and the head dim (last axis of the
-    first) is one the kernel is instantiated for."""
+def check_operands(what: str, tensors, head_dims, dtype=torch.float32) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte-aligned CUDA
+    tensor of ``dtype`` (f32 or bf16) on the first one's device and the
+    head dim (last axis of the first) is one the kernel is instantiated
+    for."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: no kernel for {dtype}")
     dev = tensors[0][1].device
     for name, t in tensors:
-        if (t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev
+        if (t.dtype != dtype or not t.is_contiguous() or t.device != dev
                 or t.data_ptr() % 16):
             raise ValueError(f"{what}: {name} must be contiguous, 16-byte "
-                             f"aligned f32 on {dev}, got {t.dtype} on {t.device}")
+                             f"aligned {dtype} on {dev}, got {t.dtype} on {t.device}")
     d = tensors[0][1].shape[-1]
     if d not in head_dims:
         raise ValueError(f"{what}: head dim {d} not in {head_dims}")
@@ -158,9 +176,21 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    check_operands(what, (("q", q), ("k", k), ("v", v)), SUPPORTED_HEAD_DIMS)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and residuals:
+        raise ValueError(f"{what}: bf16 residuals (K3 in bf16) are not ported")
+    check_operands(what, (("q", q), ("k", k), ("v", v)),
+                   SUPPORTED_HEAD_DIMS_BF16 if bf16 else SUPPORTED_HEAD_DIMS,
+                   torch.bfloat16 if bf16 else torch.float32)
     lib = _lib()
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if bf16:
+        status = lib.p2p_flash_attn_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None,
+            b * h, sq, sk, d, float(scale), stream)
+        build.check(lib, status, "p2p_flash_attn_fwd_bf16")
+        return out, None, None, False
     l = m = None
     if residuals:
         m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -176,8 +206,7 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         None if part is None else part.data_ptr(), nsplit,
-        b * h, sq, sk, d, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        b * h, sq, sk, d, float(scale), stream)
     build.check(lib, status, "p2p_flash_attn_fwd")
     return out, l, m, nsplit > 1
 
@@ -185,12 +214,15 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """K1: ``softmax(q·kᵀ·scale)·v`` for q ``(B, H, Sq, D)``, k/v
-    ``(B, H, Sk, D)``, f32, contiguous."""
+    ``(B, H, Sk, D)``, contiguous, f32 or (at d = 40) bf16."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     out, _, _, merged = _launch("flash_attention", q, k, v, scale,
                                 residuals=False)
-    flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.bf16_launches += 1
+    else:
+        flash_attention.launches += 1
     flash_attention.merge_launches += merged
     return out
 
@@ -210,6 +242,7 @@ def flash_attention_residuals(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.bf16_launches = 0
 flash_attention.merge_launches = 0
 flash_attention_residuals.launches = 0
 flash_attention_residuals.merge_launches = 0

@@ -29,6 +29,14 @@ column, so for an edit row ``e``::
 passes a row on the tensor cores in 3xTF32 (emulated by
 :func:`.tf32.fused_edit_folded`). On a CPU tensor the wrapper runs the plain
 version; on a CUDA tensor it launches both kernels or raises.
+
+In bf16 (q, k, v bf16, the operands f32) the wrapper launches the bf16
+entry: the same fold, reading bf16 values and writing ``V1``, ``V2`` as
+bf16 hi/lo pairs, then each pass as one bf16 tensor-core pass with the
+normalized P rounded to bf16 before P·V (two products with the folded
+values, one with the row's own). The plain version rounds where the JAX kernel rounds: the edited
+P to ``v``'s dtype before P·V, the output once. bf16 launches count apart,
+in ``edit_attention.bf16_launches`` and ``.bf16_fold_launches``.
 """
 
 from __future__ import annotations
@@ -58,7 +66,9 @@ def edit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, spec: EditSpec, operands: dict
                          ) -> torch.Tensor:
     """The kernel's formula in plain PyTorch (f32), on keys padded to
-    ``spec.pad_len`` with masked logits, as the JAX kernel computes it."""
+    ``spec.pad_len`` with masked logits, as the JAX kernel computes it: the
+    probabilities rounded to ``v``'s dtype before P·V (the identity in f32)
+    and the output once at the end."""
     two_b = q.shape[0]
     b_half = two_b // 2
     kp = spec.pad_len
@@ -82,7 +92,7 @@ def edit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         new = new * operands["equalizer"][:, None, None, :]
     alpha = operands["blend"][:, None, None, :]
     edited = new * alpha + (1.0 - alpha) * edits
-    probs = torch.cat([probs[:b_half + 1], edited], dim=0)
+    probs = torch.cat([probs[:b_half + 1], edited], dim=0).to(v.dtype).float()
     return torch.einsum("bhqk,bhkd->bhqd", probs, v_p).to(v.dtype)
 
 
@@ -113,15 +123,18 @@ def fold_operands(v_edits: torch.Tensor, spec: EditSpec, operands: dict):
 _ENTRY = []   # [(library, p2p_fused_edit_fwd)] once loaded
 
 
-def _entry():
+def _entry(bf16: bool):
+    """``(library, entry)``: the f32 or the bf16 C entry point."""
     if not _ENTRY:
         lib = build.library("fused_edit")
-        fn = lib.p2p_fused_edit_fwd
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _ENTRY.append((lib, fn))
-    return _ENTRY[0]
+        fns = (lib.p2p_fused_edit_fwd, lib.p2p_fused_edit_fwd_bf16)
+        for fn, pointers in zip(fns, (11, 13)):
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _ENTRY.append((lib, fns))
+    lib, fns = _ENTRY[0]
+    return lib, fns[bf16]
 
 
 def _operand(operands: dict, name: str, shape, device) -> Optional[torch.Tensor]:
@@ -140,7 +153,8 @@ def edit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float, spec: EditSpec, operands: dict) -> torch.Tensor:
     """Fused attention with the in-kernel edit. q ``(2B, H, P, D)``, k and v
     ``(2B, H, K, D)`` with K = ``spec.key_len`` (unpadded); ``operands`` from
-    ``edit_operands`` at the step. Returns ``(2B, H, P, D)``."""
+    ``edit_operands`` at the step; q, k, v f32 or bf16. Returns ``(2B, H,
+    P, D)`` in q's dtype."""
     two_b, heads, pixels, d = q.shape
     if two_b // 2 < 2:
         raise ValueError(f"edit_attention needs a base row and ≥ 1 edit row "
@@ -155,10 +169,12 @@ def edit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (two_b, heads, spec.key_len, d) or v.shape != k.shape:
         raise ValueError(f"edit_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"edit_attention: no kernel for {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"edit_attention: {name} must be contiguous f32 "
-                             f"on {q.device}, got {t.dtype} on {t.device}")
+        if t.dtype != q.dtype or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"edit_attention: {name} must be contiguous "
+                             f"{q.dtype} on {q.device}, got {t.dtype} on {t.device}")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"edit_attention: head dim {d} not in "
                          f"{SUPPORTED_HEAD_DIMS}")
@@ -174,24 +190,34 @@ def edit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib, fn = _entry()
+    bf16 = q.dtype == torch.bfloat16
+    lib, fn = _entry(bf16)
     out = torch.empty_like(q)
-    # The fold's workspace, one allocation: V1, V2, then the (E, 2) int32 flags.
+    # The fold's workspace, one allocation: V1, V2 (in bf16 as hi/lo pairs:
+    # V1, V2, V1 lo, V2 lo), then the (E, 2) int32 flags.
     n = e * heads * spec.key_len * d   # values of V1, of V2
-    ws = torch.empty(2 * n + 2 * e, dtype=torch.float32, device=q.device)
-    v1 = ws.data_ptr()
+    parts = 4 if bf16 else 2
+    size = q.element_size()
+    ws = torch.empty(parts * n * size + 8 * e, dtype=torch.uint8, device=q.device)
+    at = [ws.data_ptr() + i * size * n for i in range(parts + 1)]
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(transform),
                 ptr(refine_mix), ptr(equalizer), blend.data_ptr(), out.data_ptr(),
-                v1, v1 + 4 * n, v1 + 8 * n, two_b, heads, pixels, spec.key_len, d,
-                kp, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, status, "p2p_fused_edit_fwd")
-    edit_attention.launches += 1
-    edit_attention.fold_launches += 1
+                *at, two_b, heads, pixels, spec.key_len, d, kp, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, status, "p2p_fused_edit_fwd_bf16" if bf16 else "p2p_fused_edit_fwd")
+    if bf16:
+        edit_attention.bf16_launches += 1
+        edit_attention.bf16_fold_launches += 1
+    else:
+        edit_attention.launches += 1
+        edit_attention.fold_launches += 1
     return out
 
 
 edit_attention.launches = 0
 edit_attention.fold_launches = 0
+edit_attention.bf16_launches = 0
+edit_attention.bf16_fold_launches = 0
 
 
 def fused_site_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

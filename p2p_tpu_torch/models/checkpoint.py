@@ -251,6 +251,14 @@ def from_jax_params(tree: Any, entries: List[Entry]) -> StateDict:
             for path, name, kind in entries}
 
 
+def norm_names(entries: List[Entry]) -> set:
+    """The diffusers names of the norms' scales and biases in ``entries``
+    (the entries whose JAX path ends in a ``scale`` leaf, and their
+    siblings)."""
+    norms = {path[:-1] for path, _, _ in entries if path[-1] == "scale"}
+    return {name for path, name, _ in entries if path[:-1] in norms}
+
+
 def read_state_dict(path: str) -> StateDict:
     """Read a torch ``.bin``/``.pt`` or ``.safetensors`` file (CPU tensors)."""
     if path.endswith(".safetensors"):

@@ -3,8 +3,19 @@
 The PyTorch counterpart of ``p2p_tpu/models/nn.py``. Weights are torch
 layouts (Linear ``(out, in)``, Conv ``(O, I, kH, kW)``); spatial tensors are
 NCHW inside the models (cuDNN's layout), and the models convert at their
-public boundary to the JAX package's NHWC. Only the f32 branches of the
-norms are ported: statistics and arithmetic both in f32.
+public boundary to the JAX package's NHWC.
+
+In f32 every function is one PyTorch call. In a 16-bit dtype (bf16, the
+JAX package's production dtype) each function rounds where the JAX
+package's compiled program rounds on the CPU: XLA rounds each primitive's
+result to the carrier dtype, except where it computes a chain in f32 and
+drops the round trip in between (the argument of ``erfc`` in :func:`gelu`,
+the centred values of the norms' variance). So a product rounds before its
+bias is added, the logistic is ``1 / (1 + exp(−x))`` rounded at each step,
+and the norms take f32 statistics with the JAX package's shifted two-pass
+arithmetic (:func:`group_norm`). Weights come in the carrier dtype (cast
+once per pipeline, ``engine.sampler.Pipeline.weights``) except the norms'
+scale and bias, which stay f32.
 """
 
 from __future__ import annotations
@@ -16,9 +27,30 @@ import torch
 import torch.nn.functional as F
 
 
+def _f32(x: torch.Tensor) -> bool:
+    return x.dtype == torch.float32
+
+
+def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y`` for a residual stream that :func:`layer_norm` reads next.
+    Below f32 the sum is taken in f32 and rounded, and the unrounded sum is
+    kept on the result (``.unrounded``): the JAX program's layer norm takes
+    its mean of the sum before it is rounded (XLA drops the round trip
+    between the add and the f32 reduction; a group norm, which reshapes
+    its input first, keeps it)."""
+    if _f32(x):
+        return x + y
+    s = x.float() + y.float()
+    out = s.to(x.dtype)
+    out.unrounded = s
+    return out
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return F.linear(x, weight, bias)
+    if _f32(x) or bias is None:
+        return F.linear(x, weight, bias)
+    return F.linear(x, weight) + bias
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -28,33 +60,97 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     models use (k // 2 on every side); an int pads symmetrically."""
     if padding is None:
         padding = weight.shape[-1] // 2
-    return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+    if _f32(x) or bias is None:
+        return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+    return F.conv2d(x, weight, stride=stride, padding=padding) + bias[:, None, None]
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over the channel axis 1 of an N C ... tensor, with
-    ``min(groups, C)`` groups as the JAX package takes them."""
-    return F.group_norm(x, min(groups, x.shape[1]), weight, bias, eps)
+    ``min(groups, C)`` groups as the JAX package takes them.
+
+    Below f32 (``p2p_tpu/models/nn.py:group_norm``): the statistics in f32,
+    the tensor arithmetic in the carrier dtype. The tensor is centred by its
+    mean rounded to the carrier dtype (exact for values near the mean), the
+    variance is taken of the centred values in f32, and the rounding
+    residual of the mean is folded into the shift; the f32 scale is folded
+    into the inverse deviation before it is cast."""
+    g = min(groups, x.shape[1])
+    if _f32(x):
+        return F.group_norm(x, g, weight, bias, eps)
+    n, c = x.shape[:2]
+    xg = x.reshape(n, g, c // g, *x.shape[2:])
+    red = tuple(range(2, xg.dim()))
+    expand = (None,) * (x.dim() - 2)
+    mean = xg.float().mean(dim=red, keepdim=True)
+    m16 = mean.to(x.dtype)
+    centered = xg - m16
+    cvar = (xg.float() - m16.float()).square().mean(dim=red, keepdim=True)
+    resid = mean - m16.float()
+    var = cvar - resid.square()
+    inv = torch.rsqrt(var + eps) * weight.float().reshape(g, c // g)[(..., *expand)]
+    shift = bias.float().reshape(g, c // g)[(..., *expand)] - resid * inv
+    y = centered * inv.to(x.dtype) + shift.to(x.dtype)
+    return y.reshape(x.shape)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
+    """LayerNorm over the last axis; below f32 the shifted two-pass
+    arithmetic of :func:`group_norm` (``p2p_tpu/models/nn.py:layer_norm``),
+    with the scale applied after the cast, in the carrier dtype, and the
+    shift built from the f32 scale; the mean of a residual sum made by
+    :func:`add` is taken of the sum before it was rounded."""
+    if _f32(x):
+        return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
+    src = getattr(x, "unrounded", None)
+    mean = (x.float() if src is None else src).mean(dim=-1, keepdim=True)
+    m16 = mean.to(x.dtype)
+    centered = x - m16
+    cvar = (x.float() - m16.float()).square().mean(dim=-1, keepdim=True)
+    resid = mean - m16.float()
+    var = cvar - resid.square()
+    inv = torch.rsqrt(var + eps)
+    scale_shift = bias.float() - resid * inv * weight.float()
+    y = (centered * inv.to(x.dtype)) * weight.to(x.dtype)
+    return y + scale_shift.to(x.dtype)
+
+
+def _carrier(value: float, x: torch.Tensor) -> float:
+    """``value`` rounded to ``x``'s dtype, as JAX rounds a Python scalar
+    that meets an array of that dtype."""
+    return torch.tensor(value, dtype=x.dtype).item()
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic; below f32 ``1 / (1 + exp(−x))``, one rounding a
+    primitive, as XLA expands it."""
+    if _f32(x):
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return F.silu(x)
+    if _f32(x):
+        return F.silu(x)
+    return x * sigmoid(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU."""
-    return F.gelu(x, approximate="none")
+    """Exact (erf) GELU; below f32 ``jax.nn.gelu``'s ``0.5·x·erfc(−x·√½)``
+    with √½ in the carrier dtype, the argument of ``erfc`` in f32."""
+    if _f32(x):
+        return F.gelu(x, approximate="none")
+    return (0.5 * x) * torch.special.erfc(
+        x.float() * -_carrier(math.sqrt(0.5), x)).to(x.dtype)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's activation: x * sigmoid(1.702 x)."""
-    return x * torch.sigmoid(1.702 * x)
+    if _f32(x):
+        return x * torch.sigmoid(1.702 * x)
+    return x * sigmoid(_carrier(1.702, x) * x)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -16,13 +16,15 @@ from .config import TextEncoderConfig
 
 
 def apply_text_encoder(sd: StateDict, cfg: TextEncoderConfig,
-                       ids: torch.Tensor) -> torch.Tensor:
+                       ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """``ids (B, L) -> (B, L, D)`` in ``dtype``; ``sd``'s linear and
+    embedding weights in ``dtype`` (``engine.sampler.Pipeline.weights``)."""
     if cfg.arch != "clip":
         raise NotImplementedError(f"text encoder arch {cfg.arch!r} is not "
                                   "ported to p2p_tpu_torch")
     b, length = ids.shape
-    x = sd["text_model.embeddings.token_embedding.weight"][ids]
-    x = x + sd["text_model.embeddings.position_embedding.weight"][:length]
+    x = nn.add(sd["text_model.embeddings.token_embedding.weight"][ids].to(dtype),
+               sd["text_model.embeddings.position_embedding.weight"][:length].to(dtype))
 
     mask = None
     if cfg.causal:
@@ -49,10 +51,10 @@ def apply_text_encoder(sd: StateDict, cfg: TextEncoderConfig,
         v = split_heads(lin("self_attn.v_proj", h))
         attn = nn.fused_attention(q, k, v, scale, mask)
         attn = attn.transpose(1, 2).reshape(b, length, cfg.inner_dim)
-        x = x + lin("self_attn.out_proj", attn)
+        x = nn.add(x, lin("self_attn.out_proj", attn))
 
         h = nn.layer_norm(x, sd[p + "layer_norm2.weight"], sd[p + "layer_norm2.bias"])
-        x = x + lin("mlp.fc2", act(lin("mlp.fc1", h)))
+        x = nn.add(x, lin("mlp.fc2", act(lin("mlp.fc1", h))))
 
     return nn.layer_norm(x, sd["text_model.final_layer_norm.weight"],
                          sd["text_model.final_layer_norm.bias"])

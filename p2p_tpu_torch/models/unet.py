@@ -127,13 +127,13 @@ def _apply_transformer_block(sd: StateDict, p: str, x: torch.Tensor,
     def ln(name, t):
         return nn.layer_norm(t, sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"])
 
-    x = x + _apply_attention(sd, p + ".attn1", ln("norm1", x), context, heads,
-                             ctx, is_cross=False)
-    x = x + _apply_attention(sd, p + ".attn2", ln("norm2", x), context, heads,
-                             ctx, is_cross=True)
+    x = nn.add(x, _apply_attention(sd, p + ".attn1", ln("norm1", x), context,
+                                   heads, ctx, is_cross=False))
+    x = nn.add(x, _apply_attention(sd, p + ".attn2", ln("norm2", x), context,
+                                   heads, ctx, is_cross=True))
     h = _lin(sd, p + ".ff.net.0.proj", ln("norm3", x))
     val, gate = h.chunk(2, dim=-1)
-    return x + _lin(sd, p + ".ff.net.2", val * nn.gelu(gate))
+    return nn.add(x, _lin(sd, p + ".ff.net.2", val * nn.gelu(gate)))
 
 
 def _apply_spatial_transformer(sd: StateDict, p: str, x: torch.Tensor,

@@ -2,12 +2,15 @@
 Replace edit, or an inner iteration of null-text inversion.
 
     python -m p2p_tpu_torch.profile_step               # sampling step
+    python -m p2p_tpu_torch.profile_step --dtype bf16  # ... in bf16
     python -m p2p_tpu_torch.profile_step --inversion   # inner iteration
 
 Random SD-1.4 weights (seed 0), 512², CFG 7.5.
 
 The sampling step: 2 prompts, the ``attention_replace`` edit with the store
-off — the ``chip_smoke.py`` main path. Two measurements:
+off — the ``chip_smoke.py`` main path — in f32 or, with ``--dtype bf16``,
+in bf16 (the text encoder and U-Net in bf16, K1 at d = 40 and K2 as their
+bf16 kernels). Two measurements:
 
 1. ms per denoising step over 10 steps (text encoder and VAE excluded) with
    ``kernels=KernelConfig()`` and with ``kernels=None``, timed with CUDA
@@ -25,8 +28,9 @@ trace of 3 with the same breakdown (K1 and K3 are one CUDA kernel and
 share a class).
 
 Prints one JSON object as its last line and writes it to
-``chiprun_out/profile_step.json`` (``profile_inner.json`` with
-``--inversion``). Needs a CUDA card.
+``chiprun_out/profile_step.json`` (``profile_step_bf16.json`` with
+``--dtype bf16``, ``profile_inner.json`` with ``--inversion``). Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -51,14 +55,15 @@ PROFILE_STEPS = 3    # traced steps
 
 # Kernel-name fragments of each class, first match wins.
 CLASSES = (
-    ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_fwd_kernel", "flash_d512_kernel",
-                          "flash_merge_kernel")),
+    ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_d40_bf16_kernel", "flash_fwd_kernel",
+                          "flash_d512_kernel", "flash_merge_kernel")),
     ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel",)),
     ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel",)),
-    ("K2 fused_edit", ("edit_attn_kernel", "fold_kernel")),
+    ("K2 fused_edit", ("edit_attn_kernel", "edit_attn_bf16_kernel", "fold_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
                      "xmma_fprop")),
-    ("matrix product", ("gemm", "gemv", "cutlass", "ampere_s", "sm90_xmma", "magma")),
+    ("matrix product", ("gemm", "gemv", "cutlass", "ampere_s", "sm90_xmma", "magma",
+                        "nvjet")),
     ("normalization", ("norm", "welford")),
     ("softmax", ("softmax",)),
 )
@@ -141,13 +146,14 @@ def _cuda_ms(fn, count: int) -> float:
     return start.elapsed_time(end) / count
 
 
-def _sampling_step(pipe, device, tok) -> dict:
+def _sampling_step(pipe, device, tok, dtype) -> dict:
     ctrl = attention_replace(PROMPTS, 50, 0.8, 0.4, tok, store=False).to(device)
     with torch.no_grad():
-        context = torch.cat([encode_prompts(pipe, ["", ""]),
-                             encode_prompts(pipe, PROMPTS)])
+        context = torch.cat([encode_prompts(pipe, ["", ""], dtype),
+                             encode_prompts(pipe, PROMPTS, dtype)])
     x = torch.randn((len(PROMPTS),) + pipe.latent_shape,
-                    generator=torch.Generator(device).manual_seed(1), device=device)
+                    generator=torch.Generator(device).manual_seed(1),
+                    device=device).to(dtype)
 
     def run(kernels, steps):
         with torch.no_grad():
@@ -197,17 +203,25 @@ def main(argv=None) -> dict:
     p.add_argument("--inversion", action="store_true",
                    help="profile a null-text inner iteration instead of a "
                         "sampling step")
+    p.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                   help="compute dtype of the sampling step (the inversion "
+                        "runs in f32 only)")
     args = p.parse_args(argv)
+    if args.inversion and args.dtype != "f32":
+        p.error("--inversion runs in f32 only")
     device = resolve_device("cuda")
     tok = HashWordTokenizer()
     pipe = random_pipeline(SD14, tok, device, seed=0)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     result = _inner_iteration(pipe, device) if args.inversion else \
-        _sampling_step(pipe, device, tok)
+        _sampling_step(pipe, device, tok, dtype)
+    result["dtype"] = args.dtype
     result["card"] = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    name = "profile_inner.json" if args.inversion else "profile_step.json"
+    name = ("profile_inner.json" if args.inversion else
+            f"profile_step{'_bf16' if args.dtype == 'bf16' else ''}.json")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(result, f, indent=1)
