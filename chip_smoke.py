@@ -54,7 +54,21 @@ Phases, each of which raises on failure:
    the f32 VAE decode; the fused-vs-materialized bf16 drift (RMS) below
    √2 times the bf16-vs-f32 distance (RMS) of the same seed, and the
    null-text invariant;
-7. one ``{"kernels": [...]}`` line, then the device line last.
+7. the bf16 inversion: K3 and both K4 passes in bf16 at (1, 8, 4096, 40) and
+   ragged (S = 4100; Sq = 300 with Sk = 70), K3's ``m`` and ``l`` within
+   ``TC_TOL`` relative, and K1 in bf16 at d = 512, (1, 1, 4096, 512) and
+   ragged, each within ``BF16_TOL`` of its bf16 plain version's largest
+   magnitude and bitwise across two launches, timed beside SDPA in bf16
+   (forward, or forward and backward for K4) and the bf16 bound; then
+   ``invert(dtype=torch.bfloat16)`` at the reference defaults on the same
+   image, with exact launch counts (bf16 K1 at d = 40 for every forward
+   without gradient and the encode's bf16 K1 at d = 512, one f32 K1 for the
+   reconstruction's decode, bf16 K3 and K4 at the gradient's sites, a merge
+   for each d = 512 call that splits its keys), finite outputs, its time
+   beside the f32 inversion's and the bf16-vs-f32 RMS distances of x_T and
+   of the embeddings; and the bf16 replay of its artifact (exact launch
+   counts, the null-text invariant);
+8. one ``{"kernels": [...]}`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA card is visible or the
 package is missing.
@@ -375,14 +389,15 @@ def k2_phases(torch, K, F, dtype=None):
 
 def k1_bf16_phases(torch, K, F):
     """K1 in bf16 at d = 40: the U-Net 64² self sites of the bf16 edit,
-    (4, 8, 4096, 40), then the ragged lengths S = 4100 and Sq = 300 with
-    Sk = 70; each within ``BF16_TOL`` of the bf16 plain version's largest
-    magnitude and bitwise-equal across two launches. SDPA in bf16 is the
-    yardstick."""
+    (4, 8, 4096, 40), and of the bf16 inversion's forwards without
+    gradient, (1, 8, 4096, 40), then the ragged lengths S = 4100 and Sq =
+    300 with Sk = 70; each within ``BF16_TOL`` of the bf16 plain version's
+    largest magnitude and bitwise-equal across two launches. SDPA in bf16
+    is the yardstick."""
     gen = torch.Generator("cuda").manual_seed(4)
     rows = []
     for shape_q, sk in (((4, 8, 4096, 40), 4096), ((1, 2, 4100, 40), 4100),
-                        ((1, 2, 300, 40), 70)):
+                        ((1, 2, 300, 40), 70), ((1, 8, 4096, 40), 4096)):
         b, h, sq, d = shape_q
         q = torch.randn(shape_q, generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").bfloat16()
@@ -510,6 +525,137 @@ def k34_phases(torch, K, F):
     return rows
 
 
+def k34_bf16_phases(torch, K, F):
+    """K3 and both K4 passes in bf16 at the U-Net 64² self sites under the
+    bf16 inversion's gradient, (1, 8, 4096, 40), then at the ragged lengths
+    S = 4100 and Sq = 300 with Sk = 70: outputs and gradients within
+    ``BF16_TOL`` of the bf16 plain versions' largest magnitude, K3's f32
+    ``m`` and ``l`` within ``TC_TOL`` relative, each bitwise across two
+    launches. The K4 passes take the plain forward's residuals. SDPA in
+    bf16 is the yardstick: forward for K3, forward and backward for K4."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    rows = {}
+    for shape_q, sk in (((1, 8, 4096, 40), 4096), ((1, 2, 4100, 40), 4100),
+                        ((1, 2, 300, 40), 70)):
+        b, h, sq, d = shape_q
+        q, do = (torch.randn(shape_q, generator=gen, device="cuda").to(bf16)
+                 for _ in range(2))
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").to(bf16)
+                for _ in range(2))
+        scale = d ** -0.5
+        tag = f"{shape_q} Sk={sk}"
+        got = K.flash_attention_residuals(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = K.flash_attention_residuals_plain(q, k, v, scale)
+        err3 = rel_err(torch, got[0], want[0], f"K3 bf16 {tag} out", BF16_TOL)
+        for name, a, w in zip(("l", "m"), got[1:], want[1:]):
+            rel_err(torch, a, w, f"K3 bf16 {tag} {name}", TC_TOL)
+        again = K.flash_attention_residuals(q, k, v, scale)
+        if not all(torch.equal(a, b2) for a, b2 in zip(got, again)):
+            raise RuntimeError(f"K3 bf16 {tag}: two launches differ")
+        o, l, m = want
+        di = (o.float() * do.float()).sum(dim=-1)
+        dk, dv = K.flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale)
+        dq = K.flash_attention_bwd_dq(q, k, v, do, l, m, di, scale)
+        torch.cuda.synchronize()
+        p_dk, p_dv = K.flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
+        p_dq = K.flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale)
+        if not all(t.dtype == bf16 for t in (dq, dk, dv)):
+            raise RuntimeError(f"K4 bf16 {tag}: gradients {dq.dtype}, {dk.dtype}, {dv.dtype}")
+        err_dkv = max(rel_err(torch, dk, p_dk, f"K4 bf16 {tag} dk", BF16_TOL),
+                      rel_err(torch, dv, p_dv, f"K4 bf16 {tag} dv", BF16_TOL))
+        err_dq = rel_err(torch, dq, p_dq, f"K4 bf16 {tag} dq", BF16_TOL)
+        dk2, dv2 = K.flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale)
+        dq2 = K.flash_attention_bwd_dq(q, k, v, do, l, m, di, scale)
+        for name, a, b2 in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+            if not torch.equal(a, b2):
+                raise RuntimeError(f"K4 bf16 {tag} {name}: two launches differ")
+        if sq != 4096:
+            continue
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        sdpa_fb_ms = cuda_ms(torch, sdpa_fwd_bwd, 10)
+        n = 2 * q.numel()                        # bytes of one (B, H, S, D) bf16 tensor
+        stats = 4 * b * h * sq                   # bytes of one (B, H, S) f32 tensor
+        flops = 2.0 * b * h * sq * sk * d        # one S x S x d product
+        rows["K3"] = {"shape": list(shape_q), "max_abs_err": err3,
+                      "ms": cuda_ms(torch, lambda: K.flash_attention_residuals(
+                          q, k, v, scale), 20),
+                      "plain_ms": cuda_ms(torch, lambda: K.flash_attention_residuals_plain(
+                          q, k, v, scale), 3),
+                      "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                          q, k, v, scale=scale), 20),
+                      **bound(2 * flops, 4 * n + 2 * stats, True, bf16=True)}
+        rows["K4_dkv"] = {"shape": list(shape_q), "max_abs_err": err_dkv,
+                          "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
+                              q, k, v, do, l, m, di, scale), 20),
+                          "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
+                              q, k, v, do, l, m, di, scale), 3),
+                          "library_ms": sdpa_fb_ms,
+                          **bound(4 * flops, 6 * n + 3 * stats, True, bf16=True)}
+        rows["K4_dq"] = {"shape": list(shape_q), "max_abs_err": err_dq,
+                         "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
+                             q, k, v, do, l, m, di, scale), 20),
+                         "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
+                             q, k, v, do, l, m, di, scale), 3),
+                         "library_ms": sdpa_fb_ms,
+                         **bound(3 * flops, 5 * n + 3 * stats, True, bf16=True)}
+    for name, r in rows.items():
+        print(f"{name} bf16 {r['shape']}: max|Δ| {r['max_abs_err']:.3g}  kernel "
+              f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa bf16 "
+              f"{'fwd+bwd ' if name != 'K3' else ''}{r['library_ms']:.4f} ms  "
+              f"{bound_text(r)}")
+    print("K3/K4 bf16: two launches give bitwise-equal outputs at every geometry")
+    return rows
+
+
+def k1_d512_bf16_phases(torch, K, F):
+    """K1 in bf16 at d = 512: the bf16 VAE encode of the inversion, (1, 1,
+    4096, 512), then the ragged lengths S = 4100 and Sq = 300 with Sk = 70
+    (also with K3's residuals there); within ``BF16_TOL`` of the bf16 plain
+    version's largest magnitude (the residuals within ``TC_TOL``), bitwise
+    across two launches; timed with its key-split merge beside SDPA in
+    bf16."""
+    gen = torch.Generator("cuda").manual_seed(6)
+    rows = []
+    d = 512
+    for sq, sk in ((4096, 4096), (4100, 4100), (300, 70)):
+        q = torch.randn((1, 1, sq, d), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((1, 1, sk, d), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        scale = d ** -0.5
+        label = f"K1 bf16 d=512 Sq={sq} Sk={sk}"
+        out = K.flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = rel_err(torch, out, K.flash_attention_plain(q, k, v, scale), label, BF16_TOL)
+        if not torch.equal(out, K.flash_attention(q, k, v, scale)):
+            raise RuntimeError(f"{label}: two launches differ")
+        if sq != 4096:
+            got = K.flash_attention_residuals(q, k, v, scale)
+            torch.cuda.synchronize()
+            want = K.flash_attention_residuals_plain(q, k, v, scale)
+            rel_err(torch, got[0], want[0], f"K3 bf16 d=512 Sq={sq} Sk={sk} out", BF16_TOL)
+            for name, a, w in zip(("l", "m"), got[1:], want[1:]):
+                rel_err(torch, a, w, f"K3 bf16 d=512 Sq={sq} Sk={sk} {name}", TC_TOL)
+            continue
+        rows.append({
+            "shape": [1, 1, sq, d], "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), 20),
+            "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 3),
+            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale), 20),
+            **bound(4.0 * sq * sk * d, 2 * 4 * q.numel(), True, bf16=True)})
+        r = rows[-1]
+        print(f"{label}: kernel {r['ms']:.4f} ms (merge included)  plain "
+              f"{r['plain_ms']:.4f} ms  sdpa bf16 {r['library_ms']:.4f} ms  {bound_text(r)}")
+    return rows
+
+
 def main_path(torch, K, pipe):
     from p2p_tpu_torch import KernelConfig, attention_replace, text2image
     from p2p_tpu_torch.kernels.dispatch import site_variant
@@ -596,14 +742,19 @@ def main_path(torch, K, pipe):
                  "ms_per_step": secs16 / STEPS * 1e3, **drift16}}
 
 
-def inversion_path(torch, K, pipe):
+def inversion_path(torch, K, pipe, dtype=None):
     """``invert`` at SD-1.4 full width and the reference defaults, on a
-    seeded 512² uint8 image. The launch counts follow from the layout and
-    the inner iterations n the early stop left: every forward without
-    gradient runs K1 at the 5 self sites of 4096 pixels; in an inner
-    iteration's forward the site before the first cross site does not see
-    the embedding and runs K1 too, while the 4 after it run K3, and the
-    backward runs K4's two passes at each of those 4."""
+    seeded 512² uint8 image, in f32 or, with ``dtype`` bf16, in bf16. The
+    launch counts follow from the layout and the inner iterations n the
+    early stop left: every forward without gradient runs K1 at the 5 self
+    sites of 4096 pixels; in an inner iteration's forward the site before
+    the first cross site does not see the embedding and runs K1 too, while
+    the 4 after it run K3, and the backward runs K4's two passes at each of
+    those 4; the VAE encode and the reconstruction's decode run K1 at d =
+    512. In bf16 all of those are the bf16 kernels but the decode's, which
+    runs in f32."""
+    bf16 = dtype is not None
+    tag = "inversion bf16" if bf16 else "inversion"
     import numpy as np
 
     from p2p_tpu_torch.engine import inversion as inv
@@ -642,7 +793,7 @@ def inversion_path(torch, K, pipe):
         t0 = time.perf_counter()
         art = inv.invert(pipe, image, PROMPTS[0], num_steps=STEPS,
                          num_inner_steps=INNER_STEPS, early_stop_epsilon=EARLY_STOP,
-                         device="cuda")
+                         dtype=dtype or torch.float32, device="cuda")
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -651,46 +802,55 @@ def inversion_path(torch, K, pipe):
     counts = path_counts(K)
     peak = torch.cuda.max_memory_allocated()
     n = sum(art.inner_steps)
-    want = {**dict.fromkeys(counts, 0),
-            # inversion, cond + advance forwards, inner forwards, VAE encode
-            # and the reconstruction's decode
-            "flash_attn": STEPS * len(big) + STEPS * 2 * len(big) + n * n_const + 2,
-            "flash_attn_residuals": n * n_grad,
-            "flash_attn_bwd_dq": n * n_grad,
-            "flash_attn_bwd_dkv": n * n_grad,
-            "flash_merge": 2 * vae_merges(torch, pipe, 1)}
+    # inversion, cond + advance forwards and inner forwards; then the VAE
+    # encode and the reconstruction's decode
+    forwards = STEPS * len(big) + STEPS * 2 * len(big) + n * n_const
+    want = dict.fromkeys(counts, 0)
+    if bf16:
+        want.update({"flash_attn_bf16": forwards + 1, "flash_attn": 1,
+                     "flash_attn_residuals_bf16": n * n_grad,
+                     "flash_attn_bwd_dq_bf16": n * n_grad,
+                     "flash_attn_bwd_dkv_bf16": n * n_grad})
+    else:
+        want.update({"flash_attn": forwards + 2, "flash_attn_residuals": n * n_grad,
+                     "flash_attn_bwd_dq": n * n_grad, "flash_attn_bwd_dkv": n * n_grad})
+    want["flash_merge"] = 2 * vae_merges(torch, pipe, 1)
     if counts != want:
-        raise RuntimeError(f"inversion launch counts {counts}, expected {want}")
+        raise RuntimeError(f"{tag} launch counts {counts}, expected {want}")
     if art.uncond_embeddings.shape != (STEPS, 1, cfg.text.max_length,
                                        cfg.text.hidden_dim):
         raise RuntimeError(f"embeddings {art.uncond_embeddings.shape}")
     if not (np.isfinite(art.uncond_embeddings).all() and np.isfinite(art.x_t).all()):
-        raise RuntimeError("non-finite inversion output")
+        raise RuntimeError(f"non-finite {tag} output")
+    if art.x_t.dtype != np.float32 or (bf16 and not np.array_equal(
+            art.x_t, torch.from_numpy(art.x_t).bfloat16().float().numpy())):
+        raise RuntimeError(f"{tag}: x_T {art.x_t.dtype} does not hold its compute dtype's values")
     stats = {"s_total": total, "s_ddim_invert": seconds["ddim_invert"],
              "s_null_optimize": seconds["null_optimize"], "inner_iterations": n,
              "ms_per_inner_iteration": seconds["null_optimize"] / n * 1e3,
              "inner_steps": art.inner_steps, "max_memory_allocated": peak,
              "launches": counts}
-    print(f"inversion: {total:.3f} s ({seconds['ddim_invert']:.3f} s DDIM "
+    print(f"{tag}: {total:.3f} s ({seconds['ddim_invert']:.3f} s DDIM "
           f"inversion, {seconds['null_optimize']:.3f} s optimization); {n} inner "
           f"iterations, {stats['ms_per_inner_iteration']:.2f} ms each (cond and "
           f"advance forwards included); peak memory {peak / 2**30:.2f} GiB")
-    print(f"inversion: launches {counts}; inner steps {art.inner_steps}")
+    print(f"{tag}: launches {counts}; inner steps {art.inner_steps}")
     return art, image, stats
 
 
-def replay_path(torch, K, pipe, art, image, f32_latents=None):
+def replay_path(torch, K, pipe, art, image, f32_latents=None, tag=None):
     """The replay edit of the inversion: Replace + LocalBlend + Reweight with
     the optimized embeddings, with and without the kernels, and the source
     row's reconstruction against the raw ``""`` uncond. With the f32
-    materialized replay's latents ``f32_latents``, the same in bf16 (the
-    f32 artifact's embeddings cast at each step): its kernels are the bf16
-    K1 and K2, its VAE decode the f32 K1, and its drift is held as the main
-    path's (:func:`bf16_drift`). Returns the launch counts, the
-    materialized run's latents and the numbers."""
-    bf16 = f32_latents is not None
+    materialized replay's latents ``f32_latents``, or a ``tag`` naming it,
+    the same in bf16 (the artifact's embeddings cast at each step): its
+    kernels are the bf16 K1 and K2, its VAE decode the f32 K1; given
+    ``f32_latents``, its drift is held as the main path's
+    (:func:`bf16_drift`). Returns the launch counts, the materialized run's
+    latents and the numbers."""
+    bf16 = f32_latents is not None or tag is not None
     dtype = torch.bfloat16 if bf16 else torch.float32
-    tag = "replay bf16" if bf16 else "replay"
+    tag = tag or ("replay bf16" if bf16 else "replay")
     from p2p_tpu_torch import KernelConfig, make_controller, text2image
     from p2p_tpu_torch.kernels.dispatch import site_variant
     from p2p_tpu_torch.models import vae as vae_mod
@@ -732,8 +892,11 @@ def replay_path(torch, K, pipe, art, image, f32_latents=None):
     if img.shape != (2, size, size, 3) or not bool(torch.isfinite(lat).all()):
         raise RuntimeError(f"{tag} images {tuple(img.shape)} or non-finite latents")
     _, lat_ref, secs_ref = run(None, ups)
-    if bf16:
+    if f32_latents is not None:
         stats = bf16_drift(torch, tag, lat, lat_ref, f32_latents)
+    elif bf16:
+        stats = {"latent_drift": max_err(torch, lat, lat_ref),
+                 "latent_drift_rms": rms_err(torch, lat, lat_ref)}
     else:
         stats = {"latent_drift": max_err(torch, lat, lat_ref)}
         if stats["latent_drift"] > DRIFT_TOL:
@@ -769,6 +932,7 @@ def kernel_entry(name, source, replaces, launches, rows, **extra):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -808,6 +972,8 @@ def main() -> int:
     k34 = k34_phases(torch, K, F)
     k1_bf16 = k1_bf16_phases(torch, K, F)
     k2_bf16 = k2_phases(torch, K, F, torch.bfloat16)
+    k34_bf16 = k34_bf16_phases(torch, K, F)
+    k1_bf16 += k1_d512_bf16_phases(torch, K, F)
     t0 = time.perf_counter()
     pipe = random_pipeline(SD14, HashWordTokenizer(), "cuda", seed=0)
     torch.cuda.synchronize()
@@ -817,7 +983,23 @@ def main() -> int:
     replay_counts, replay_lat, replay = replay_path(torch, K, pipe, art, image)
     replay16_counts, _, replay16 = replay_path(torch, K, pipe, art, image, replay_lat)
     replay["bf16"] = replay16
+    art16, _, inversion16 = inversion_path(torch, K, pipe, torch.bfloat16)
+    inversion["bf16"] = inversion16
+    dist = {f"{name}_rms": float(np.sqrt(np.mean(
+        (getattr(art16, name).astype(np.float64) - getattr(art, name)) ** 2)))
+        for name in ("x_t", "uncond_embeddings")}
+    inversion16.update(bf16_vs_f32=dist)
+    print(f"inversion bf16: {inversion16['s_total']:.3f} s, "
+          f"{inversion16['ms_per_inner_iteration']:.2f} ms per inner iteration, peak "
+          f"{inversion16['max_memory_allocated'] / 2**30:.2f} GiB; f32 "
+          f"{inversion['s_total']:.3f} s, {inversion['ms_per_inner_iteration']:.2f} ms, "
+          f"{inversion['max_memory_allocated'] / 2**30:.2f} GiB; bf16 vs f32 RMS: "
+          f"x_T {dist['x_t_rms']:.4g}, embeddings {dist['uncond_embeddings_rms']:.4g}")
+    replay16i_counts, _, replay16i = replay_path(torch, K, pipe, art16, image,
+                                                 tag="replay bf16 of the bf16 artifact")
+    replay["bf16_of_bf16_artifact"] = replay16i
     inv_counts = inversion["launches"]
+    inv16_counts = inversion16["launches"]
     result = {"kernels": [
         kernel_entry("flash_attn", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:330", counts["flash_attn"], k1,
@@ -855,10 +1037,35 @@ def main() -> int:
                      [k34["K4_dkv"]]),
         kernel_entry("flash_attn_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:330", counts16["flash_attn_bf16"], k1_bf16,
-                     units="tensor cores, bf16 (flash_d40_bf16_kernel, attn_bf16.cuh)",
+                     units="tensor cores, bf16 (flash_d40_bf16_kernel at d = 40, "
+                           "flash_d512_bf16_kernel at d = 512; attn_bf16.cuh)",
                      replay_launches=replay16_counts["flash_attn_bf16"],
-                     note="K1 at d = 40 with bf16 q, k, v and output; library_ms "
-                          "is SDPA in bf16"),
+                     inversion_bf16_launches=inv16_counts["flash_attn_bf16"],
+                     replay_of_bf16_artifact_launches=replay16i_counts["flash_attn_bf16"],
+                     merge_launches={"inversion_bf16": inv16_counts["flash_merge"]},
+                     note="K1 with bf16 q, k, v and output: at d = 40 (the head "
+                          "row, launches from the bf16 edit) and at d = 512 (the "
+                          "bf16 inversion's VAE encode, one of inversion_bf16_"
+                          "launches; its ms includes the key-split merge); "
+                          "library_ms is SDPA in bf16"),
+        kernel_entry("flash_attn_residuals_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+                     "p2p_tpu/models/nn.py:343", inv16_counts["flash_attn_residuals_bf16"],
+                     [k34_bf16["K3"]],
+                     units="tensor cores, bf16 (flash_d40_bf16_kernel writing m and l)",
+                     note="launches from the bf16 inversion; library_ms is SDPA "
+                          "forward in bf16"),
+        kernel_entry("flash_attn_bwd_dq_bf16", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "p2p_tpu/models/nn.py:308", inv16_counts["flash_attn_bwd_dq_bf16"],
+                     [k34_bf16["K4_dq"]],
+                     units="tensor cores, bf16 (flash_bwd_dq_bf16_kernel)",
+                     note="launches from the bf16 inversion; library_ms is SDPA "
+                          "forward and backward in bf16"),
+        kernel_entry("flash_attn_bwd_dkv_bf16", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "p2p_tpu/models/nn.py:308", inv16_counts["flash_attn_bwd_dkv_bf16"],
+                     [k34_bf16["K4_dkv"]],
+                     units="tensor cores, bf16 (flash_bwd_dkv_bf16_kernel)",
+                     note="launches from the bf16 inversion; library_ms is SDPA "
+                          "forward and backward in bf16"),
         kernel_entry("fused_edit_bf16", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", counts16["fused_edit_bf16"],
                      k2_bf16,
@@ -871,6 +1078,7 @@ def main() -> int:
                           "values; sdpa_yardstick_ms is SDPA in bf16"),
     ], "main_path": path, "inversion": inversion, "replay": replay,
         "replay_launches": replay_counts, "replay_bf16_launches": replay16_counts,
+        "replay_bf16_of_bf16_artifact_launches": replay16i_counts,
         "card": card}
     # K3 + K4 per inner iteration from the kernel phase's times, against the
     # measured inner iteration.
@@ -880,6 +1088,11 @@ def main() -> int:
     print(f"inversion: K3 + K4 at {n_grad} sites take {k34_ms:.3f} ms of the "
           f"{inversion['ms_per_inner_iteration']:.2f} ms inner iteration "
           f"({100 * k34_ms / inversion['ms_per_inner_iteration']:.1f} %)")
+    k34_16_ms = n_grad * sum(k34_bf16[k]["ms"] for k in ("K3", "K4_dq", "K4_dkv"))
+    inversion16["k3_k4_ms_per_inner_iteration"] = k34_16_ms
+    print(f"inversion bf16: K3 + K4 bf16 at {n_grad} sites take {k34_16_ms:.3f} ms of "
+          f"the {inversion16['ms_per_inner_iteration']:.2f} ms inner iteration "
+          f"({100 * k34_16_ms / inversion16['ms_per_inner_iteration']:.1f} %)")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

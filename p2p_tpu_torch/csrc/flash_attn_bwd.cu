@@ -1,4 +1,5 @@
-// K4: flash attention backward, non-causal, unmasked, f32 in and out.
+// K4: flash attention backward, non-causal, unmasked, f32 in and out, and
+// the same two passes on bf16 operands (below, after the f32 kernels).
 //
 // Replaces the JAX library's flash backward that `jax.grad` runs through
 // `flash_attention_tpu` (p2p_tpu/models/nn.py:308-340): the Pallas kernels
@@ -48,6 +49,7 @@
 // -inf - -inf is ever formed and nothing past the edge is stored.
 #include <math.h>
 
+#include "attn_bf16.cuh"
 #include "mma_tf32.cuh"
 
 using namespace p2p;
@@ -356,6 +358,309 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr size_t DKV_SMEM = sizeof(float) * (10 * TILE + 7 * BR);
 constexpr size_t DQ_SMEM = sizeof(float) * (10 * TILE + 3 * BR);
 
+// ----------------------------------------------------------------- bf16
+//
+// The same two passes on bf16 q, k, v and do (f32 m, l, di; bf16 dq, dk,
+// dv), one bf16 tensor-core product a term with f32 accumulation
+// (attn_bf16.cuh: mma.sync m16n8k16, and m16n8k8 for the head dim's last 8
+// columns; operands read by ldmatrix). They round where the JAX library's
+// kernels round (flash_attention.py:895-938 and :1237-1283): p = exp(s -
+// lse) in f32, rounded to bf16 for dv += p^T do; dp = do v^T in f32; ds =
+// (dp - di) * p * scale in f32 and rounded to bf16 *after* the scale for
+// dk += ds^T q and dq += ds k (40^-1/2 is not a power of two, so the
+// f32 kernels' scale at the end would round elsewhere); the f32 sums
+// rounded to bf16 once, when stored. Tiles are 64 x 40 bf16 with row
+// stride 40, five 16-byte chunks (odd), so ldmatrix reads them without
+// bank conflicts. The warp's own 16 rows of the tile that stays (K and V
+// in dkv, Q and dO in dq) are A fragments held in registers for the whole
+// walk; the streamed tiles give B fragments, and the C fragments of s^T
+// and ds^T (s and ds) are packed into the A fragments of the next product
+// without leaving registers. Each tile's product is summed in its own
+// accumulator and added in f32. About 32 KB of shared memory a block.
+// Bound at (1, 8, 4096, 40), the bf16 inversion's gradient sites: the
+// products at 989 TFLOP/s, dkv 0.043 ms (four), dq 0.033 ms (three).
+namespace b16 {
+constexpr int LDB = D;             // 40 bf16: five 16-byte chunks a row
+constexpr int TILEB = BR * LDB;
+constexpr int NO = D / 8;         // n-tiles of a product over the head dim
+
+// The A fragments of a warp's 16 rows of a tile: the head dim's two k16
+// steps and its last k8 step.
+struct RowsA {
+  uint32_t a[2][4];
+  uint32_t t[2];
+};
+
+__device__ __forceinline__ void load_rows_a(RowsA& f, const bf16* rows) {
+  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
+  const bf16* p = rows + (lr + 8 * (lm & 1)) * LDB;
+  ldsm_x4(f.a[0], p + 8 * (lm >> 1));
+  ldsm_x4(f.a[1], p + 16 + 8 * (lm >> 1));
+  ldsm_x2(f.t, p + 32);
+}
+
+// acc = A X^T over the head dim: the warp's 16 rows of A against the 64
+// rows of the tile X, in a fresh accumulator.
+__device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const RowsA& A,
+                                           const bf16* X) {
+  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
+#pragma unroll
+  for (int n = 0; n < NRT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int n = 0; n < NRT; n += 2) {
+      uint32_t b[4];  // (rows 8n, d lo), (8n, hi), (8n + 8, lo), (8n + 8, hi)
+      ldsm_x4(b, X + (8 * (n + (lm >> 1)) + lr) * LDB + ks * 16 + 8 * (lm & 1));
+      mma_bf16_k16(acc[n], A.a[ks], b);
+      mma_bf16_k16(acc[n + 1], A.a[ks], b + 2);
+    }
+#pragma unroll
+  for (int n = 0; n < NRT; n += 2) {
+    uint32_t b[2];  // rows 8n, rows 8n + 8, the last 8 dims
+    ldsm_x2(b, X + (8 * (n + (lm & 1)) + lr) * LDB + 32);
+    mma_bf16_k8(acc[n], A.t, b[0]);
+    mma_bf16_k8(acc[n + 1], A.t, b[1]);
+  }
+}
+
+// out += bf16(C) Y: the warp's 16 x 64 C fragments, rounded to bf16 and
+// packed as the A fragments of four k16 steps (k = the 64 rows of Y),
+// against the tile Y; the tile's product in its own accumulator, added to
+// out in f32.
+__device__ __forceinline__ void product_cy(float (&out)[NO][4], const float (&c)[NRT][4],
+                                           const bf16* Y) {
+  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
+  float tile[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NRT / 2; ++j) {
+    const uint32_t a[4] = {pack_bf16(c[2 * j][0], c[2 * j][1]),
+                           pack_bf16(c[2 * j][2], c[2 * j][3]),
+                           pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]),
+                           pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3])};
+    const bf16* Yj = Y + (16 * j + 8 * (lm & 1) + lr) * LDB;
+#pragma unroll
+    for (int n = 0; n + 1 < NO; n += 2) {
+      uint32_t b[4];  // (rows lo, d 8n), (rows hi, 8n), (lo, 8n + 8), (hi, 8n + 8)
+      ldsm_x4_t(b, Yj + 8 * (n + (lm >> 1)));
+      mma_bf16_k16(tile[n], a, b);
+      mma_bf16_k16(tile[n + 1], a, b + 2);
+    }
+    uint32_t b[2];
+    ldsm_x2_t(b, Yj + 8 * (NO - 1));
+    mma_bf16_k16(tile[NO - 1], a, b);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] += tile[n][e];
+}
+
+// Rows row0 + [0, 16) of out = bf16(acc); rows at or past rows_total skipped.
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[NO][4],
+                                           int row0, int rows_total) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    if (r >= rows_total) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(out + (size_t)r * D + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+constexpr size_t DKV_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 7 * BR;
+constexpr size_t DQ_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 3 * BR;
+}  // namespace b16
+
+// grid (key tiles of 64, bh), 128 threads: warp w owns keys k0 + 16 w + [0, 16).
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ m, const float* __restrict__ l,
+                          const float* __restrict__ di, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int sq, int sk, float scale) {
+  using namespace b16;
+  extern __shared__ __align__(16) unsigned char smem_b16[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_b16);
+  bf16* Vs = Ks + TILEB;
+  bf16* Qs = Vs + TILEB;             // two stages of Q, then two of dO
+  bf16* dOs = Qs + 2 * TILEB;
+  float* m_s = reinterpret_cast<float*>(dOs + 2 * TILEB);  // two stages each
+  float* l_s = m_s + 2 * BR;
+  float* di_s = l_s + 2 * BR;
+  float* lse_s = di_s + 2 * BR;
+
+  const size_t bh = blockIdx.y;
+  const bf16* qb = q + bh * sq * D;
+  const bf16* dob = dout + bh * sq * D;
+  const float* mb = m + bh * sq;
+  const float* lb = l + bh * sq;
+  const float* dib = di + bh * sq;
+  const int k0 = blockIdx.x * BR;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
+  const int w0 = warp * 16;
+  const float scale2 = scale * LOG2E;
+
+  land_rows_bf16<D, LDB, BR, NT>(Ks, k + bh * sk * D, k0, sk);
+  land_rows_bf16<D, LDB, BR, NT>(Vs, v + bh * sk * D, k0, sk);
+  land_rows_bf16<D, LDB, BR, NT>(Qs, qb, 0, sq);
+  land_rows_bf16<D, LDB, BR, NT>(dOs, dob, 0, sq);
+  cp_async_stats(m_s, l_s, di_s, mb, lb, dib, 0, sq);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  RowsA ka, va;
+  load_rows_a(ka, Ks + w0 * LDB);
+  load_rows_a(va, Vs + w0 * LDB);
+
+  float dK[NO][4], dV[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[n][e] = dV[n][e] = 0.f;
+
+  const int nq = (sq + BR - 1) / BR;
+  for (int it = 0; it < nq; ++it) {
+    const int st = it & 1, q0 = it * BR;
+    if (it > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it is in; stage st ^ 1 and lse_s are free
+    }
+    if (it + 1 < nq) {
+      const int nx = st ^ 1, q1 = q0 + BR;
+      land_rows_bf16<D, LDB, BR, NT>(Qs + nx * TILEB, qb, q1, sq);
+      land_rows_bf16<D, LDB, BR, NT>(dOs + nx * TILEB, dob, q1, sq);
+      cp_async_stats(m_s + nx * BR, l_s + nx * BR, di_s + nx * BR, mb, lb, dib, q1, sq);
+    }
+    cp_async_commit();
+    if (threadIdx.x < BR)
+      lse_s[threadIdx.x] = lse2_of(m_s[st * BR + threadIdx.x], l_s[st * BR + threadIdx.x],
+                                   q0 + threadIdx.x < sq);
+    __syncthreads();
+    const bf16* Qt = Qs + st * TILEB;
+    const bf16* dOt = dOs + st * TILEB;
+    const float* dit = di_s + st * BR;
+
+    // p^T = exp(scale * k q^T - lse): keys are rows, queries columns.
+    float p[NRT][4], ds[NRT][4];
+    product_nt(p, ka, Qt);
+#pragma unroll
+    for (int n = 0; n < NRT; ++n) {
+      const int c = n * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = exp2f(p[n][e] * scale2 - lse_s[c + (e & 1)]);
+    }
+    product_cy(dV, p, dOt);
+    // ds^T = (v do^T - di) * p^T * scale, rounded to bf16 by product_cy.
+    product_nt(ds, va, dOt);
+#pragma unroll
+    for (int n = 0; n < NRT; ++n) {
+      const int c = n * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = (ds[n][e] - dit[c + (e & 1)]) * p[n][e] * scale;
+    }
+    product_cy(dK, ds, Qt);
+  }
+  store_rows(dk + bh * sk * D, dK, k0 + w0, sk);
+  store_rows(dv + bh * sk * D, dV, k0 + w0, sk);
+}
+
+// grid (query tiles of 64, bh), 128 threads: warp w owns queries q0 + 16 w + [0, 16).
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ m, const float* __restrict__ l,
+                         const float* __restrict__ di, bf16* __restrict__ dq,
+                         int sq, int sk, float scale) {
+  using namespace b16;
+  extern __shared__ __align__(16) unsigned char smem_b16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_b16);
+  bf16* dOs = Qs + TILEB;
+  bf16* Ks = dOs + TILEB;            // two stages of K, then two of V
+  bf16* Vs = Ks + 2 * TILEB;
+  float* m_s = reinterpret_cast<float*>(Vs + 2 * TILEB);
+  float* l_s = m_s + BR;
+  float* di_s = l_s + BR;
+
+  const size_t bh = blockIdx.y;
+  const bf16* kb = k + bh * sk * D;
+  const bf16* vb = v + bh * sk * D;
+  const int q0 = blockIdx.x * BR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = warp * 16;
+  const float scale2 = scale * LOG2E;
+
+  land_rows_bf16<D, LDB, BR, NT>(Qs, q + bh * sq * D, q0, sq);
+  land_rows_bf16<D, LDB, BR, NT>(dOs, dout + bh * sq * D, q0, sq);
+  cp_async_stats(m_s, l_s, di_s, m + bh * sq, l + bh * sq, di + bh * sq, q0, sq);
+  land_rows_bf16<D, LDB, BR, NT>(Ks, kb, 0, sk);
+  land_rows_bf16<D, LDB, BR, NT>(Vs, vb, 0, sk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  RowsA qa, doa;
+  load_rows_a(qa, Qs + w0 * LDB);
+  load_rows_a(doa, dOs + w0 * LDB);
+  // The statistics of the thread's two rows, w0 + g and w0 + g + 8.
+  float lse2[2], dis[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = w0 + g + 8 * h;
+    lse2[h] = lse2_of(m_s[r], l_s[r], q0 + r < sq);
+    dis[h] = di_s[r];
+  }
+
+  float dQ[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dQ[n][e] = 0.f;
+
+  const int nk = (sk + BR - 1) / BR;
+  for (int it = 0; it < nk; ++it) {
+    const int st = it & 1, key0 = it * BR;
+    if (it > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it is in; stage st ^ 1 is free
+    }
+    if (it + 1 < nk) {
+      land_rows_bf16<D, LDB, BR, NT>(Ks + (st ^ 1) * TILEB, kb, key0 + BR, sk);
+      land_rows_bf16<D, LDB, BR, NT>(Vs + (st ^ 1) * TILEB, vb, key0 + BR, sk);
+    }
+    cp_async_commit();
+    const bf16* Kt = Ks + st * TILEB;
+
+    // p = exp(scale * q k^T - lse), 0 for keys past sk.
+    float p[NRT][4], ds[NRT][4];
+    product_nt(p, qa, Kt);
+#pragma unroll
+    for (int n = 0; n < NRT; ++n) {
+      const int c = key0 + n * 8 + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = c + (e & 1) < sk ? exp2f(p[n][e] * scale2 - lse2[e >> 1]) : 0.f;
+    }
+    // ds = (do v^T - di) * p * scale, rounded to bf16 by product_cy.
+    product_nt(ds, doa, Vs + st * TILEB);
+#pragma unroll
+    for (int n = 0; n < NRT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = (ds[n][e] - dis[e >> 1]) * p[n][e] * scale;
+    product_cy(dQ, ds, Kt);
+  }
+  store_rows(dq + bh * sq * D, dQ, q0 + w0, sq);
+}
+
 int launch(const void* kern, size_t smem, dim3 grid, void** args,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -397,4 +702,33 @@ extern "C" int p2p_flash_attn_bwd_dq(const float* q, const float* k,
   return launch(reinterpret_cast<const void*>(flash_bwd_dq_kernel), DQ_SMEM,
                 dim3((sq + BR - 1) / BR, bh), args,
                 static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 passes: q, k, v, dout and the outputs bf16 with the shapes
+// above; m, l and di f32. Returns a cudaError_t (0 on success).
+extern "C" int p2p_flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                                           const void* dout, const float* m,
+                                           const float* l, const float* di, void* dk,
+                                           void* dv, int bh, int sq, int sk, int d,
+                                           float scale, void* stream) {
+  if (d != D) return cudaErrorInvalidValue;
+  void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dk, &dv, &sq, &sk, &scale};
+  return launch(reinterpret_cast<const void*>(flash_bwd_dkv_bf16_kernel), b16::DKV_SMEM,
+                dim3((sk + BR - 1) / BR, bh), args, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int p2p_flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                                          const void* dout, const float* m,
+                                          const float* l, const float* di, void* dq,
+                                          int bh, int sq, int sk, int d, float scale,
+                                          void* stream) {
+  if (d != D) return cudaErrorInvalidValue;
+  void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dq, &sq, &sk, &scale};
+  return launch(reinterpret_cast<const void*>(flash_bwd_dq_bf16_kernel), b16::DQ_SMEM,
+                dim3((sq + BR - 1) / BR, bh), args, static_cast<cudaStream_t>(stream));
+}
+
+// The message of a CUDA error code, for the Python wrappers.
+extern "C" const char* p2p_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -17,6 +17,13 @@ sites that is the flash forward with residuals (K3) and the flash backward
 (K4), through ``models.nn.fused_attention``. Only the embedding takes
 gradients: no weight requires grad.
 
+``invert(dtype=torch.bfloat16)`` runs it as the JAX package's production
+inversion does: the image, the VAE encode (K1 at d = 512 in bf16), the text
+encoder, the U-Net and the latents in bf16; the embedding and its Adam
+state in f32, cast to bf16 at each U-Net call; classifier-free guidance
+promoted to f32 by the f32 guidance scale; the loss's DDIM step and
+comparison in f32; the reconstruction's decode in f32.
+
 :func:`invert` returns an :class:`InversionArtifact` (x_T and the
 per-step embeddings) whose ``.npz`` has the JAX package's keys, so an
 artifact written by either package loads in the other.
@@ -59,10 +66,17 @@ class InversionArtifact:
 
     @classmethod
     def load(cls, path: str) -> "InversionArtifact":
+        """Read an artifact of either package. The JAX package's bf16
+        inversion saves ``x_t`` as an ml_dtypes bfloat16 array, which numpy
+        reads as 2-byte void items; those are bf16 bit patterns, widened
+        here to the f32 values they hold."""
         z = np.load(path, allow_pickle=False)
         gt = z["image_gt"]
         rec = z["image_rec"]
-        return cls(x_t=z["x_t"], uncond_embeddings=z["uncond_embeddings"],
+        x_t = z["x_t"]
+        if x_t.dtype.kind == "V" and x_t.dtype.itemsize == 2:
+            x_t = (x_t.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+        return cls(x_t=x_t, uncond_embeddings=z["uncond_embeddings"],
                    prompt=str(z["prompt"]), num_steps=int(z["num_steps"]),
                    image_gt=gt if gt.size else None,
                    image_rec=rec if rec.size else None)
@@ -95,13 +109,15 @@ def ddim_invert(pipe: Pipeline, schedule: sched_mod.DiffusionSchedule,
                 image: torch.Tensor, cond: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """image ``(1, H, W, 3)`` in [-1, 1] → ``(latent0, x_T, latents)``,
-    ``latents`` the T+1 latents ``(T+1, 1, h, w, c)`` in ascending noise."""
+    ``latents`` the T+1 latents ``(T+1, 1, h, w, c)`` in ascending noise,
+    all in ``image``'s dtype (the compute dtype), ``cond`` in it too."""
     cfg = pipe.config
+    unet_sd = pipe.weights(image.dtype)[0]
     with torch.no_grad():
-        latent = vae_mod.encode(pipe.vae, cfg.vae, image)
+        latent = vae_mod.encode(pipe.vae_encoder_weights(image.dtype), cfg.vae, image)
         latents = [latent]
         for t in reversed(schedule.timesteps.tolist()):
-            eps, _ = apply_unet(pipe.unet, cfg.unet, latent, t, cond)
+            eps, _ = apply_unet(unet_sd, cfg.unet, latent, t, cond)
             eps = sched_mod.to_epsilon(schedule, eps, t, latent)
             latent = sched_mod.ddim_next_step(schedule, eps, t, latent)
             latents.append(latent)
@@ -122,9 +138,14 @@ def _adam_update(g, m, v, j: float, lr, b1: float = 0.9, b2: float = 0.999,
 
 
 def _cfg_eps(pipe, schedule, latent, t, uncond, eps_cond, guidance_scale):
-    """ε under CFG with the uncond half recomputed from ``uncond``."""
-    eps_u, _ = apply_unet(pipe.unet, pipe.config.unet, latent, t, uncond)
-    eps = eps_u + guidance_scale * (eps_cond - eps_u)
+    """ε under CFG with the uncond half recomputed from ``uncond`` (f32,
+    cast to ``eps_cond``'s dtype, the compute dtype), taken as
+    ``sampler.denoise`` takes it: promoted to f32 by the JAX package's f32
+    guidance scale, the difference unrounded (XLA drops its round trip
+    through bf16)."""
+    eps_u, _ = apply_unet(pipe.weights(eps_cond.dtype)[0], pipe.config.unet,
+                          latent, t, uncond.to(eps_cond.dtype))
+    eps = eps_u.float() + guidance_scale * (eps_cond.float() - eps_u.float())
     return sched_mod.to_epsilon(schedule, eps, t, latent)
 
 
@@ -135,7 +156,8 @@ def null_text_loss(pipe: Pipeline, schedule: sched_mod.DiffusionSchedule,
     """The inner loss at one outer step: the mean squared distance, in
     f32, between the CFG DDIM step from ``latent`` with uncond embedding
     ``uncond`` and the recorded ``target`` one step less noisy.
-    ``eps_cond`` is the (gradient-free) conditional ε at ``latent``."""
+    ``eps_cond`` is the (gradient-free) conditional ε at ``latent``, in the
+    compute dtype; ``uncond`` is f32 and is cast to it for the U-Net."""
     eps = _cfg_eps(pipe, schedule, latent, t, uncond, eps_cond, guidance_scale)
     prev = sched_mod.ddim_step(schedule, eps, t, latent.float())
     return torch.mean(torch.square(prev - target.float()))
@@ -152,9 +174,11 @@ def null_optimize(pipe: Pipeline, schedule: sched_mod.DiffusionSchedule,
     the inner iterations each outer step ran.
 
     The embedding and its Adam state stay f32; the loss's step math and
-    comparison run in f32. The schedule constants (learning rate, stop
+    comparison run in f32; the U-Net and the latents run in ``cond``'s
+    dtype, the compute dtype. The schedule constants (learning rate, stop
     threshold) are taken in f32, as the JAX package takes them."""
     t_count = schedule.timesteps.shape[0]
+    unet_sd = pipe.weights(cond.dtype)[0]
     latent_cur = latents[-1]
     uncond = uncond0.float()
     out, counts = [], []
@@ -164,7 +188,7 @@ def null_optimize(pipe: Pipeline, schedule: sched_mod.DiffusionSchedule,
         stop_at = np.float32(epsilon) + np.float32(i) * np.float32(2e-5)
         target = latents[t_count - 1 - i]
         with torch.no_grad():
-            eps_cond, _ = apply_unet(pipe.unet, pipe.config.unet, latent_cur,
+            eps_cond, _ = apply_unet(unet_sd, pipe.config.unet, latent_cur,
                                      t, cond)
         u = uncond
         m = torch.zeros_like(u)
@@ -204,6 +228,11 @@ def invert(pipe: Pipeline, image, prompt: str, *, num_steps: int = 50,
     full guidance reproduces the image. The result's ``inner_steps`` lists
     the Adam iterations of each outer step.
 
+    ``dtype`` is the compute dtype, ``torch.float32`` or ``torch.bfloat16``
+    (the JAX package's production dtype; see the module docstring); the
+    artifact's x_T is f32 either way, holding the bf16 values exactly in
+    bf16, and its embeddings are f32.
+
     ``gate`` must be None or ``num_steps``: the optimization targets the
     uncond branch at every step, which phase gating would drop. Runs on
     CUDA unless ``device="cpu"`` is asked for."""
@@ -213,11 +242,9 @@ def invert(pipe: Pipeline, image, prompt: str, *, num_steps: int = 50,
             f"(gate={gate!r}): the optimization targets a per-step uncond "
             "embedding at every DDIM step, which CFG truncation would drop. "
             "Run invert() with gate=None.")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "p2p_tpu_torch inverts in float32 only: bf16 inversion needs K3, "
-            "K4 and K1 at d = 512 in bf16 and comes in the next slice of the "
-            "port; sample in bf16 with text2image(dtype=torch.bfloat16)")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"p2p_tpu_torch inverts in float32 or "
+                                  f"bfloat16, not {dtype}")
     device = resolve_device(device)
     if pipe.device.type != device.type:
         raise ValueError(f"the pipeline's weights are on {pipe.device}, "
@@ -234,19 +261,19 @@ def invert(pipe: Pipeline, image, prompt: str, *, num_steps: int = 50,
     schedule = sched_mod.schedule_from_config(num_steps, cfg.scheduler,
                                               kind="ddim", device=device)
     with torch.no_grad():
-        cond = encode_prompts(pipe, [prompt])
-        uncond0 = encode_prompts(pipe, [""])
+        cond = encode_prompts(pipe, [prompt], dtype)
+        uncond0 = encode_prompts(pipe, [""], dtype)
     latent0, x_t, all_latents = ddim_invert(
-        pipe, schedule, torch.from_numpy(image_f).to(device), cond)
+        pipe, schedule, torch.from_numpy(image_f).to(device, dtype), cond)
     uncond_list, counts = null_optimize(
         pipe, schedule, all_latents, uncond0, cond, gs, num_inner_steps,
         early_stop_epsilon)
     with torch.no_grad():
-        rec = vae_mod.to_uint8(vae_mod.decode(pipe.vae, cfg.vae, latent0))
+        rec = vae_mod.to_uint8(vae_mod.decode(pipe.vae, cfg.vae, latent0.float()))
     gt = image if image.dtype == np.uint8 else vae_mod.to_uint8(
         torch.from_numpy(image_f))[0].numpy()
     return InversionArtifact(
-        x_t=x_t.cpu().numpy(),
+        x_t=x_t.float().cpu().numpy(),
         uncond_embeddings=uncond_list.cpu().numpy(),
         prompt=prompt,
         num_steps=num_steps,

@@ -77,6 +77,8 @@ class Pipeline:
     tokenizer: Tokenizer
     _cast: Dict[torch.dtype, Tuple[StateDict, StateDict]] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
+    _cast_encoder: Dict[torch.dtype, StateDict] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -101,6 +103,21 @@ class Pipeline:
                                  cast(self.text_encoder,
                                       ck.text_encoder_entries(cfg.text)))
         return self._cast[dtype]
+
+    def vae_encoder_weights(self, dtype) -> StateDict:
+        """The VAE's weights for an encode in ``dtype``: the encoder's and
+        ``quant_conv``'s convolution and linear tensors cast to ``dtype``
+        once and kept, as :meth:`weights` casts the U-Net's, the norms'
+        scales and biases f32; the decoder's left out (the decode runs in
+        f32 on ``vae``). The f32 weights themselves for f32."""
+        if dtype == torch.float32:
+            return self.vae
+        if dtype not in self._cast_encoder:
+            keep = ck.norm_names(ck.vae_entries(self.config.vae))
+            self._cast_encoder[dtype] = {
+                n: t if n in keep else t.to(dtype) for n, t in self.vae.items()
+                if n.startswith(("encoder.", "quant_conv."))}
+        return self._cast_encoder[dtype]
 
     @property
     def latent_shape(self) -> Tuple[int, int, int]:

@@ -18,9 +18,10 @@ launches in ``<wrapper>.launches``; K1's and K3's wrappers also count the
 merge kernel their d = 512 calls launch when they split the keys, in
 ``<wrapper>.merge_launches`` (:func:`merge_launches`), and K2's wrapper the
 fold kernel it launches before the main kernel, in
-``edit_attention.fold_launches`` (:func:`fold_launches`). K1 and K2 also
-take bf16 operands (K1 at d = 40); those launches count apart
-(:func:`bf16_launch_counts`).
+``edit_attention.fold_launches`` (:func:`fold_launches`). Every kernel also
+takes bf16 operands (K1 and K3 at d = 40 and 512, K4 at d = 40); those
+launches count apart (:func:`bf16_launch_counts`), and K1's and K3's bf16
+merges in :func:`merge_launches` with the f32 ones.
 """
 
 from .dispatch import (
@@ -70,11 +71,14 @@ def fold_launches() -> int:
 
 
 def bf16_launch_counts() -> dict:
-    """``{kernel: launches}`` of the bf16 kernels: K1 at d = 40, K2 and its
-    fold."""
+    """``{kernel: launches}`` of the bf16 kernels: K1 (d = 40 and 512), K2
+    and its fold, K3 and K4's two passes."""
     return {"flash_attn_bf16": flash_attention.bf16_launches,
             "fused_edit_bf16": edit_attention.bf16_launches,
-            "fused_edit_fold_bf16": edit_attention.bf16_fold_launches}
+            "fused_edit_fold_bf16": edit_attention.bf16_fold_launches,
+            "flash_attn_residuals_bf16": flash_attention_residuals.bf16_launches,
+            "flash_attn_bwd_dq_bf16": flash_attention_bwd_dq.bf16_launches,
+            "flash_attn_bwd_dkv_bf16": flash_attention_bwd_dkv.bf16_launches}
 
 
 def reset_launch_counts() -> None:
@@ -86,9 +90,12 @@ def reset_launch_counts() -> None:
     edit_attention.bf16_launches = 0
     edit_attention.bf16_fold_launches = 0
     flash_attention_residuals.launches = 0
+    flash_attention_residuals.bf16_launches = 0
     flash_attention_residuals.merge_launches = 0
     flash_attention_bwd_dq.launches = 0
+    flash_attention_bwd_dq.bf16_launches = 0
     flash_attention_bwd_dkv.launches = 0
+    flash_attention_bwd_dkv.bf16_launches = 0
 
 
 __all__ = [

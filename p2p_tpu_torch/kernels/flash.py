@@ -21,11 +21,15 @@ VAE's mid attention ``(2, 1, 4096, 512)`` (no split) and ``(1, 1, 4096,
 512)`` (two splits, in the inversion's encode and decode); K3 at ``(1, 8,
 4096, 40)`` in the null-text inversion's gradient steps.
 
-K1 also takes bf16 q, k and v at d = 40 (the U-Net's 64²-pixel self sites
-of a bf16 edit): ``flash_d40_bf16_kernel``, one bf16 tensor-core pass with
-f32 accumulation, P rounded to bf16 before P·V as the JAX library kernel
-rounds it (``p.astype(v.dtype)``), the output rounded to bf16 once. Its
-launches count apart, in ``flash_attention.bf16_launches``, so the f32
+K1 and K3 also take bf16 q, k and v: at d = 40 (the U-Net's 64²-pixel
+self sites of a bf16 edit, and of a bf16 inversion's forwards and
+gradients) ``flash_d40_bf16_kernel``, at d = 512 (the bf16 VAE encode of a
+bf16 inversion, (1, 1, 4096, 512)) ``flash_d512_bf16_kernel`` with the same
+key split and merge as in f32; both one bf16 tensor-core pass a product
+with f32 accumulation, the unnormalized P rounded to bf16 before P·V as the
+JAX library kernel rounds it (``p.astype(v.dtype)``), the output rounded to
+bf16 once, ``m`` and ``l`` f32 (``l`` the sum of the unrounded P). bf16
+launches count apart, in ``.bf16_launches`` of each wrapper, so the f32
 counts stay what the f32 paths give.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
@@ -44,7 +48,7 @@ from . import build
 
 #: Head dims the CUDA kernel is instantiated for, in f32 and in bf16.
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 160, 512)
-SUPPORTED_HEAD_DIMS_BF16 = (40,)
+SUPPORTED_HEAD_DIMS_BF16 = (40, 512)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,7 +72,9 @@ def flash_attention_residuals_plain(q: torch.Tensor, k: torch.Tensor,
                                     chunk: int = 1024):
     """``(out, l, m)`` materialized, chunked over queries: ``m`` the row
     max of ``s = q·kᵀ·scale``, ``l`` the row sum of ``exp(s − m)``, both
-    f32 ``(B, H, Sq)`` — the JAX library's residual convention."""
+    f32 ``(B, H, Sq)`` — the JAX library's residual convention. P is
+    rounded to ``v``'s dtype before P·V, as the library rounds it (the
+    identity in f32); ``l`` sums it unrounded."""
     outs, ls, ms = [], [], []
     for s0 in range(0, q.shape[-2], chunk):
         s = torch.einsum("bhqd,bhkd->bhqk", q[..., s0:s0 + chunk, :].float(),
@@ -76,7 +82,8 @@ def flash_attention_residuals_plain(q: torch.Tensor, k: torch.Tensor,
         m = s.amax(dim=-1)
         p = torch.exp(s - m[..., None])
         l = p.sum(dim=-1)
-        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l[..., None])
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+                    / l[..., None])
         ls.append(l)
         ms.append(m)
     return (torch.cat(outs, dim=-2).to(v.dtype), torch.cat(ls, dim=-1),
@@ -126,7 +133,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.p2p_flash_attn_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     occ = lib.p2p_flash_attn_d40_occupancy
@@ -148,9 +155,9 @@ def d40_occupancy() -> tuple:
 
 def check_operands(what: str, tensors, head_dims, dtype=torch.float32) -> None:
     """Raise unless every tensor is a contiguous, 16-byte-aligned CUDA
-    tensor of ``dtype`` (f32 or bf16) on the first one's device and the
-    head dim (last axis of the first) is one the kernel is instantiated
-    for."""
+    tensor of ``dtype`` (f32 or bf16) on the first one's device and, unless
+    ``head_dims`` is None, the head dim (last axis of the first) is one the
+    kernel is instantiated for."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: no kernel for {dtype}")
     dev = tensors[0][1].device
@@ -160,7 +167,7 @@ def check_operands(what: str, tensors, head_dims, dtype=torch.float32) -> None:
             raise ValueError(f"{what}: {name} must be contiguous, 16-byte "
                              f"aligned {dtype} on {dev}, got {t.dtype} on {t.device}")
     d = tensors[0][1].shape[-1]
-    if d not in head_dims:
+    if head_dims is not None and d not in head_dims:
         raise ValueError(f"{what}: head dim {d} not in {head_dims}")
 
 
@@ -177,20 +184,12 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and residuals:
-        raise ValueError(f"{what}: bf16 residuals (K3 in bf16) are not ported")
     check_operands(what, (("q", q), ("k", k), ("v", v)),
                    SUPPORTED_HEAD_DIMS_BF16 if bf16 else SUPPORTED_HEAD_DIMS,
                    torch.bfloat16 if bf16 else torch.float32)
     lib = _lib()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if bf16:
-        status = lib.p2p_flash_attn_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None,
-            b * h, sq, sk, d, float(scale), stream)
-        build.check(lib, status, "p2p_flash_attn_fwd_bf16")
-        return out, None, None, False
     l = m = None
     if residuals:
         m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -202,19 +201,20 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if nsplit > 1:
             part = torch.empty(nsplit * b * h * sq * (d + 2), dtype=torch.float32,
                                device=q.device)
-    status = lib.p2p_flash_attn_fwd(
+    entry = "p2p_flash_attn_fwd_bf16" if bf16 else "p2p_flash_attn_fwd"
+    status = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         None if part is None else part.data_ptr(), nsplit,
         b * h, sq, sk, d, float(scale), stream)
-    build.check(lib, status, "p2p_flash_attn_fwd")
+    build.check(lib, status, entry)
     return out, l, m, nsplit > 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """K1: ``softmax(q·kᵀ·scale)·v`` for q ``(B, H, Sq, D)``, k/v
-    ``(B, H, Sk, D)``, contiguous, f32 or (at d = 40) bf16."""
+    ``(B, H, Sk, D)``, contiguous, f32 or (at d = 40 and 512) bf16."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     out, _, _, merged = _launch("flash_attention", q, k, v, scale,
@@ -231,12 +231,16 @@ def flash_attention_residuals(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, scale: float):
     """K3: ``(out, l, m)`` — K1's output plus each row's softmax sum ``l``
     and max ``m``, f32 ``(B, H, Sq)``; the forward the backward
-    (:mod:`.flash_bwd`) pairs with."""
+    (:mod:`.flash_bwd`) pairs with; q, k, v and the output f32 or (at d =
+    40 and 512) bf16."""
     if q.device.type == "cpu":
         return flash_attention_residuals_plain(q, k, v, scale)
     out, l, m, merged = _launch("flash_attention_residuals", q, k, v, scale,
                                 residuals=True)
-    flash_attention_residuals.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_residuals.bf16_launches += 1
+    else:
+        flash_attention_residuals.launches += 1
     flash_attention_residuals.merge_launches += merged
     return out, l, m
 
@@ -245,4 +249,5 @@ flash_attention.launches = 0
 flash_attention.bf16_launches = 0
 flash_attention.merge_launches = 0
 flash_attention_residuals.launches = 0
+flash_attention_residuals.bf16_launches = 0
 flash_attention_residuals.merge_launches = 0

@@ -9,9 +9,18 @@ kernels are ``csrc/flash_attn_bwd.cu``: two passes, dk/dv over key tiles
 and dq over query tiles, each recomputing the probabilities from K3's
 residuals ``(l, m)``, every product on the tensor cores in 3xTF32 (f32
 accuracy; :mod:`.tf32` emulates it), deterministic (no atomics). ``di = Σ o·do`` is taken
-in PyTorch here, as the JAX rule takes it outside its kernels. Path shape:
-the U-Net's 64²-pixel self sites under the null-text inversion's gradient,
-``(1, 8, 4096, 40)``.
+in PyTorch here, in f32, as the JAX rule takes it outside its kernels. Path
+shape: the U-Net's 64²-pixel self sites under the null-text inversion's
+gradient, ``(1, 8, 4096, 40)``.
+
+Both passes also take bf16 q, k, v and do (f32 ``l``, ``m``, ``di``; bf16
+gradients), the gradient of a bf16 inversion: one bf16 tensor-core product
+a term with f32 accumulation, rounding where the JAX library's kernels
+round — ``p`` to bf16 before ``dv += pᵀ·do``, ``ds = (dp − di)·p·scale``
+to bf16 after the scale before ``dk += dsᵀ·q`` and ``dq += ds·k``, the
+sums once at the end. The plain passes round at the same points (the
+identity in f32, where the scale stays at the end as the f32 kernels take
+it). bf16 launches count apart, in ``.bf16_launches``.
 
 On CPU tensors each pass's wrapper (:func:`flash_attention_bwd_dkv`,
 :func:`flash_attention_bwd_dq`) runs its plain version; on CUDA tensors it
@@ -34,11 +43,22 @@ from .flash import check_operands, flash_attention_residuals
 SUPPORTED_HEAD_DIMS = (40,)
 
 
+def _ds(p, dp, di, scale: float, dtype):
+    """``ds = p∘(dp − di)`` as the next product takes it: in f32 unscaled
+    (the f32 passes scale the sum at the end); below f32 scaled and
+    rounded to ``dtype``, as the JAX library rounds ``ds·scale``."""
+    ds = p * (dp - di)
+    return ds if dtype == torch.float32 else (ds * scale).to(dtype).float()
+
+
 def flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale: float,
                                   chunk: int = 1024):
     """``(dk, dv)`` by the kernel's formulas, materialized one chunk of
     query rows at a time: ``p = exp(s − (m + log l))``, ``dv = pᵀ·do``,
-    ``ds = p∘(do·vᵀ − di)``, ``dk = scale·dsᵀ·q``."""
+    ``ds = p∘(do·vᵀ − di)``, ``dk = scale·dsᵀ·q``; ``p`` and ``scale·ds``
+    rounded to the operands' dtype before their products (:func:`_ds`),
+    and the outputs in it."""
+    dtype = q.dtype
     q, k, v, do = (t.float() for t in (q, k, v, do))
     lse = m + torch.log(l)
     dk = torch.zeros_like(k)
@@ -48,16 +68,20 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale: float,
         qc, doc = q[..., sl, :], do[..., sl, :]
         p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qc, k) * scale
                       - lse[..., sl, None])
-        dv = dv + torch.einsum("bhqk,bhqd->bhkd", p, doc)
-        ds = p * (torch.einsum("bhqd,bhkd->bhqk", doc, v) - di[..., sl, None])
-        dk = dk + torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
-    return dk, dv
+        dv = dv + torch.einsum("bhqk,bhqd->bhkd", p.to(dtype).float(), doc)
+        ds = _ds(p, torch.einsum("bhqd,bhkd->bhqk", doc, v), di[..., sl, None],
+                 scale, dtype)
+        dk_c = torch.einsum("bhqk,bhqd->bhkd", ds, qc)
+        dk = dk + (dk_c * scale if dtype == torch.float32 else dk_c)
+    return dk.to(dtype), dv.to(dtype)
 
 
 def flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale: float,
                                  chunk: int = 1024):
     """``dq = scale·ds·k`` by the kernel's formulas, one chunk of query rows
-    at a time."""
+    at a time; ``scale·ds`` rounded to the operands' dtype before the
+    product, and the output in it."""
+    dtype = q.dtype
     q, k, v, do = (t.float() for t in (q, k, v, do))
     lse = m + torch.log(l)
     dqs = []
@@ -66,9 +90,11 @@ def flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale: float,
         doc = do[..., sl, :]
         p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q[..., sl, :], k) * scale
                       - lse[..., sl, None])
-        ds = p * (torch.einsum("bhqd,bhkd->bhqk", doc, v) - di[..., sl, None])
-        dqs.append(torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale)
-    return torch.cat(dqs, dim=-2)
+        ds = _ds(p, torch.einsum("bhqd,bhkd->bhqk", doc, v), di[..., sl, None],
+                 scale, dtype)
+        dq = torch.einsum("bhqk,bhkd->bhqd", ds, k)
+        dqs.append(dq * scale if dtype == torch.float32 else dq)
+    return torch.cat(dqs, dim=-2).to(dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, l, m, scale: float):
@@ -80,17 +106,20 @@ def flash_attention_bwd_plain(q, k, v, o, do, l, m, scale: float):
 
 def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attn_bwd")
-    lib.p2p_flash_attn_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    lib.p2p_flash_attn_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    lib.p2p_flash_attn_bwd_dkv.restype = ctypes.c_int
-    lib.p2p_flash_attn_bwd_dq.restype = ctypes.c_int
+    for suffix in ("", "_bf16"):
+        dkv = getattr(lib, "p2p_flash_attn_bwd_dkv" + suffix)
+        dq = getattr(lib, "p2p_flash_attn_bwd_dq" + suffix)
+        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        dkv.restype = dq.restype = ctypes.c_int
     return lib
 
 
 def _check(what, q, k, v, do, l, m, di):
-    """Raise unless the operands are what the CUDA kernels take."""
+    """Raise unless the operands are what the CUDA kernels take: q, k, v
+    and do f32 or bf16 alike, l, m and di f32."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -100,26 +129,35 @@ def _check(what, q, k, v, do, l, m, di):
         raise ValueError(f"{what}: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} do{tuple(do.shape)} "
                          f"l{tuple(l.shape)} m{tuple(m.shape)} di{tuple(di.shape)}")
-    check_operands(what, (("q", q), ("k", k), ("v", v), ("do", do), ("l", l),
-                          ("m", m), ("di", di)), SUPPORTED_HEAD_DIMS)
+    check_operands(what, (("q", q), ("k", k), ("v", v), ("do", do)),
+                   SUPPORTED_HEAD_DIMS, q.dtype)
+    check_operands(what, (("l", l), ("m", m), ("di", di)), None)
+    if l.device != q.device:
+        raise ValueError(f"{what}: l on {l.device}, q on {q.device}")
     return b * h, sq, sk, d
 
 
 def flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale: float):
     """K4's dk/dv pass: ``(dk, dv)`` from q/do ``(B, H, Sq, D)``, k/v
     ``(B, H, Sk, D)``, K3's residuals ``l``, ``m`` and ``di = Σ o·do``
-    ``(B, H, Sq)``; f32, contiguous."""
+    ``(B, H, Sq)``; contiguous, q, k, v and do f32 or bf16 (the gradients
+    in their dtype), ``l``, ``m`` and ``di`` f32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
     bh, sq, sk, d = _check("flash_attention_bwd_dkv", q, k, v, do, l, m, di)
+    bf16 = q.dtype == torch.bfloat16
+    entry = "p2p_flash_attn_bwd_dkv" + ("_bf16" if bf16 else "")
     lib = _lib()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    status = lib.p2p_flash_attn_bwd_dkv(
+    status = getattr(lib, entry)(
         *(t.data_ptr() for t in (q, k, v, do, m, l, di, dk, dv)), bh, sq, sk, d,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, status, "p2p_flash_attn_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    build.check(lib, status, entry)
+    if bf16:
+        flash_attention_bwd_dkv.bf16_launches += 1
+    else:
+        flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
@@ -128,28 +166,35 @@ def flash_attention_bwd_dq(q, k, v, do, l, m, di, scale: float):
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale)
     bh, sq, sk, d = _check("flash_attention_bwd_dq", q, k, v, do, l, m, di)
+    bf16 = q.dtype == torch.bfloat16
+    entry = "p2p_flash_attn_bwd_dq" + ("_bf16" if bf16 else "")
     lib = _lib()
     dq = torch.empty_like(q)
-    status = lib.p2p_flash_attn_bwd_dq(
+    status = getattr(lib, entry)(
         *(t.data_ptr() for t in (q, k, v, do, m, l, di, dq)), bh, sq, sk, d,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, status, "p2p_flash_attn_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    build.check(lib, status, entry)
+    if bf16:
+        flash_attention_bwd_dq.bf16_launches += 1
+    else:
+        flash_attention_bwd_dq.launches += 1
     return dq
 
 
 def flash_attention_bwd(q, k, v, o, do, l, m, scale: float):
     """K4: the gradients ``(dq, dk, dv)`` of ``o = softmax(q·kᵀ·scale)·v``
     given the output gradient ``do`` and K3's residuals ``l``, ``m``.
-    ``di = Σ o·do`` is computed here, outside the kernels, as the JAX
-    library's rule computes it."""
-    di = (o * do).sum(dim=-1)
+    ``di = Σ o·do`` is computed here, outside the kernels, in f32 from
+    the operands widened first, as the JAX library's rule computes it."""
+    di = (o.float() * do.float()).sum(dim=-1)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale)
     return flash_attention_bwd_dq(q, k, v, do, l, m, di, scale), dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.bf16_launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.bf16_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

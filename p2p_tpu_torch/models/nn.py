@@ -117,7 +117,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y + scale_shift.to(x.dtype)
 
 
-def _carrier(value: float, x: torch.Tensor) -> float:
+def carrier(value: float, x: torch.Tensor) -> float:
     """``value`` rounded to ``x``'s dtype, as JAX rounds a Python scalar
     that meets an array of that dtype."""
     return torch.tensor(value, dtype=x.dtype).item()
@@ -143,14 +143,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     if _f32(x):
         return F.gelu(x, approximate="none")
     return (0.5 * x) * torch.special.erfc(
-        x.float() * -_carrier(math.sqrt(0.5), x)).to(x.dtype)
+        x.float() * -carrier(math.sqrt(0.5), x)).to(x.dtype)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's activation: x * sigmoid(1.702 x)."""
     if _f32(x):
         return x * torch.sigmoid(1.702 * x)
-    return x * sigmoid(_carrier(1.702, x) * x)
+    return x * sigmoid(carrier(1.702, x) * x)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 ``decode`` takes latents ``(B, h, w, 4)`` (NHWC, as the JAX package) to an
 image ``(B, H, W, 3)`` in [-1, 1]; ``encode`` / ``encode_moments`` take an
 image back to latents (null-text inversion's starting point); inside both
-run NCHW. The mid blocks' single-head self-attention over all pixels
+run NCHW. ``encode`` also runs in bf16 (a bf16 inversion's), rounding where
+the JAX program rounds as ``models/nn.py`` does; the decode runs in f32. The mid blocks' single-head self-attention over all pixels
 (S = 4096, d = 512 at SD-1.4's 64² latent) is the flash kernel K1.
 """
 
@@ -85,9 +86,14 @@ def encode_moments(sd: StateDict, cfg: VAEConfig, image: torch.Tensor):
 
 
 def encode(sd: StateDict, cfg: VAEConfig, image: torch.Tensor) -> torch.Tensor:
-    """Deterministic latent: the posterior mean times ``scaling_factor``."""
+    """Deterministic latent: the posterior mean times ``scaling_factor``.
+    A bf16 image takes bf16 weights (``Pipeline.vae_encoder_weights``) and
+    gives a bf16 latent, the factor rounded to bf16 first as JAX rounds a
+    Python float that meets a bf16 array."""
     mean, _ = encode_moments(sd, cfg, image)
-    return mean * cfg.scaling_factor
+    if mean.dtype == torch.float32:
+        return mean * cfg.scaling_factor
+    return mean * nn.carrier(cfg.scaling_factor, mean)
 
 
 def decode(sd: StateDict, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,7 @@ Replace edit, or an inner iteration of null-text inversion.
     python -m p2p_tpu_torch.profile_step               # sampling step
     python -m p2p_tpu_torch.profile_step --dtype bf16  # ... in bf16
     python -m p2p_tpu_torch.profile_step --inversion   # inner iteration
+    python -m p2p_tpu_torch.profile_step --inversion --dtype bf16
 
 Random SD-1.4 weights (seed 0), 512², CFG 7.5.
 
@@ -23,14 +24,16 @@ The inner iteration (``--inversion``): one gradient of the null-text loss
 with respect to the uncond embedding at the first outer step — a batch-1
 U-Net forward and backward, K1 at one 64² self site, K3 and K4 at four —
 and the loss read back to the host, as ``engine.inversion.null_optimize``
-runs it. ms per inner iteration over 10 iterations (CUDA events), then a
-trace of 3 with the same breakdown (K1 and K3 are one CUDA kernel and
-share a class).
+runs it, in f32 or, with ``--dtype bf16``, in bf16 (the U-Net, the latent
+and the conditional ε in bf16, the embedding f32 and cast at the call; K1,
+K3 and K4 as their bf16 kernels). ms per inner iteration over 10
+iterations (CUDA events), then a trace of 3 with the same breakdown (K1
+and K3 are one CUDA kernel and share a class).
 
 Prints one JSON object as its last line and writes it to
 ``chiprun_out/profile_step.json`` (``profile_step_bf16.json`` with
-``--dtype bf16``, ``profile_inner.json`` with ``--inversion``). Needs a
-CUDA card.
+``--dtype bf16``, ``profile_inner.json`` with ``--inversion``,
+``profile_inner_bf16.json`` with both). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -56,9 +59,10 @@ PROFILE_STEPS = 3    # traced steps
 # Kernel-name fragments of each class, first match wins.
 CLASSES = (
     ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_d40_bf16_kernel", "flash_fwd_kernel",
-                          "flash_d512_kernel", "flash_merge_kernel")),
-    ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel",)),
-    ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel",)),
+                          "flash_d512_kernel", "flash_d512_bf16_kernel",
+                          "flash_merge_kernel")),
+    ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_bf16_kernel")),
+    ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_bf16_kernel")),
     ("K2 fused_edit", ("edit_attn_kernel", "edit_attn_bf16_kernel", "fold_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
                      "xmma_fprop")),
@@ -171,7 +175,7 @@ def _sampling_step(pipe, device, tok, dtype) -> dict:
             **_breakdown(lambda: run(KernelConfig(), PROFILE_STEPS), PROFILE_STEPS)}
 
 
-def _inner_iteration(pipe, device) -> dict:
+def _inner_iteration(pipe, device, dtype) -> dict:
     from .engine.inversion import null_text_loss
     from .models.unet import apply_unet
     from .ops.schedulers import schedule_from_config
@@ -180,11 +184,11 @@ def _inner_iteration(pipe, device) -> dict:
     t = sched.timesteps.tolist()[0]
     gen = torch.Generator(device).manual_seed(1)
     latent, target = (torch.randn((1,) + pipe.latent_shape, generator=gen,
-                                  device=device) for _ in range(2))
+                                  device=device).to(dtype) for _ in range(2))
     with torch.no_grad():
-        cond = encode_prompts(pipe, [PROMPTS[0]])
-        u0 = encode_prompts(pipe, [""])
-        eps_cond, _ = apply_unet(pipe.unet, pipe.config.unet, latent, t, cond)
+        cond = encode_prompts(pipe, [PROMPTS[0]], dtype)
+        u0 = encode_prompts(pipe, [""], dtype).float()
+        eps_cond, _ = apply_unet(pipe.weights(dtype)[0], pipe.config.unet, latent, t, cond)
 
     def run(iters):
         for _ in range(iters):
@@ -204,24 +208,21 @@ def main(argv=None) -> dict:
                    help="profile a null-text inner iteration instead of a "
                         "sampling step")
     p.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
-                   help="compute dtype of the sampling step (the inversion "
-                        "runs in f32 only)")
+                   help="compute dtype of the sampling step or inner iteration")
     args = p.parse_args(argv)
-    if args.inversion and args.dtype != "f32":
-        p.error("--inversion runs in f32 only")
     device = resolve_device("cuda")
     tok = HashWordTokenizer()
     pipe = random_pipeline(SD14, tok, device, seed=0)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    result = _inner_iteration(pipe, device) if args.inversion else \
+    result = _inner_iteration(pipe, device, dtype) if args.inversion else \
         _sampling_step(pipe, device, tok, dtype)
     result["dtype"] = args.dtype
     result["card"] = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    name = ("profile_inner.json" if args.inversion else
-            f"profile_step{'_bf16' if args.dtype == 'bf16' else ''}.json")
+    name = (f"profile_{'inner' if args.inversion else 'step'}"
+            f"{'_bf16' if args.dtype == 'bf16' else ''}.json")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(result, f, indent=1)
