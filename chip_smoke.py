@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/H100 port: builds the CUDA kernels, holds each
 against its plain PyTorch version at every geometry its paths give it, and
-drives the SD-1.4 Replace edit, a null-text inversion and its replay edit end
-to end through the package's entry points.
+drives the SD-1.4 Replace edit, a null-text inversion and its replay edit,
+and the SD-2.1 768-v Replace edit, end to end through the package's entry
+points.
 
     python3 chip_smoke.py
 
@@ -54,7 +55,11 @@ Phases, each of which raises on failure:
    the f32 VAE decode; the fused-vs-materialized bf16 drift (RMS) below
    √2 times the bf16-vs-f32 distance (RMS) of the same seed, and the
    null-text invariant;
-7. the bf16 inversion: K3 and both K4 passes in bf16 at (1, 8, 4096, 40) and
+7. the bf16 inversion: the bf16 sums of the norms' backward
+   (``window_sum_bf16_kernel``, XLA's windowed bf16 reduction) at the
+   inversion's group- and layer-norm shapes, bitwise equal to their plain
+   version and across two launches, timed beside ``torch.sum``; K3 and both
+   K4 passes in bf16 at (1, 8, 4096, 40) and
    ragged (S = 4100; Sq = 300 with Sk = 70), K3's ``m`` and ``l`` within
    ``TC_TOL`` relative, and K1 in bf16 at d = 512, (1, 1, 4096, 512) and
    ragged, each within ``BF16_TOL`` of its bf16 plain version's largest
@@ -64,11 +69,27 @@ Phases, each of which raises on failure:
    image, with exact launch counts (bf16 K1 at d = 40 for every forward
    without gradient and the encode's bf16 K1 at d = 512, one f32 K1 for the
    reconstruction's decode, bf16 K3 and K4 at the gradient's sites, a merge
-   for each d = 512 call that splits its keys), finite outputs, its time
+   for each d = 512 call that splits its keys, and the norms' backward sums
+   of every gradient, as many as one gradient launches on its own), finite
+   outputs, its time
    beside the f32 inversion's and the bf16-vs-f32 RMS distances of x_T and
    of the embeddings; and the bf16 replay of its artifact (exact launch
    counts, the null-text invariant);
-8. one ``{"kernels": [...]}`` line, then the device line last.
+8. SD-2.1 (``models/config.py:SD21`` and ``SD21_BASE``, head dim 64): K1
+   at d = 64 in f32 (``flash_d64_kernel``, 3xTF32, within ``TC_TOL``) and
+   bf16 (``flash_d64_bf16_kernel``, within ``BF16_TOL``) at the self sites
+   of both configs, (4, 5, 9216, 64), (4, 10, 2304, 64) and (4, 5, 4096,
+   64), and ragged; K3 in bf16 at d = 64, (1, 5, 4096, 64); K2 at every
+   D = 64 geometry of both configs' Replace edits in both dtypes; K1 at
+   d = 512 at the 768² VAE's (2, 1, 9216, 512) (in phase 2); each bitwise
+   across two launches and timed beside its plain version, its bound and
+   SDPA. Then the 768-v edit (2 prompts, DDIM 50 steps, CFG 7.5,
+   ``attention_replace(..., 0.8, 0.4)``) in f32 and in bf16 with exact
+   launch counts by head dim (``kernels.head_dim_launch_counts``), the f32
+   drift within ``DRIFT_TOL`` and the bf16 drift held as in phase 6;
+   the 512-base config runs only its kernel geometries;
+9. the script's wall time, one ``{"kernels": [...]}`` line, then the device
+   line last.
 
 Exits non-zero, printing no result, when no CUDA card is visible or the
 package is missing.
@@ -215,13 +236,15 @@ def vae_merges(torch, pipe, batch: int) -> int:
 def k1_phases(torch, K, F):
     """K1 at the U-Net 64² self sites and the VAE mid attention: batch 4 and
     2 on the edit paths, batch 1 in the inversion (its forwards without
-    gradient, and the VAE encode), each twice for bitwise-equal outputs;
+    gradient, and the VAE encode), and SD-2.1's VAE at 96² latent pixels
+    (2, 1, 9216, 512), each twice for bitwise-equal outputs;
     then both kernels at ragged lengths (S = 4100, and Sq = 300 with
     Sk = 70), the d = 512 one also with K3's residuals."""
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
     for shape, iters in (((4, 8, 4096, 40), 20), ((2, 1, 4096, 512), 10),
-                         ((1, 8, 4096, 40), 20), ((1, 1, 4096, 512), 10)):
+                         ((1, 8, 4096, 40), 20), ((1, 1, 4096, 512), 10),
+                         ((2, 1, 9216, 512), 5)):
         b, h, s, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         scale = d ** -0.5
@@ -280,13 +303,16 @@ def graph_ms(torch, fn, iters: int) -> float:
     return cuda_ms(torch, graph.replay, iters)
 
 
-def k2_cases(torch):
+def k2_cases(torch, cfg=None):
     """``[(label, spec, operands, q, k, v, scale)]`` at K2's 13 main-path
     geometries (P, D, K), with the real operands of their controllers: the
     16 cross sites (Replace and Refine) and the 6 self sites inside (step 0,
     α = 1) and outside (step 45, α = 0) the injection window; and the replay
     edit's cross sites at P = 4096 (Replace with Reweight's equalizer). CFG
-    batch 4 (one edit row), q/k/v drawn in order from one generator."""
+    batch 4 (one edit row), q/k/v drawn in order from one generator. With
+    ``cfg`` (an SD-2.1 config), its Replace edit's geometries instead: the
+    cross sites at every level and the self sites within ``self_max_pixels``
+    at steps 0 and 45, all at D = 64."""
     from p2p_tpu_torch.controllers.factory import (
         attention_refine,
         attention_replace,
@@ -303,13 +329,20 @@ def k2_cases(torch):
              "reweight": make_controller(PROMPTS, True, 0.8, 0.4, tok, STEPS,
                                          equalizer_params=EQUALIZER)}
     metas = {}
-    for m in unet_layout(SD14.unet).metas:
+    for m in unet_layout((cfg or SD14).unet).metas:
         metas.setdefault((m.is_cross, m.pixels), m)
-    gen = torch.Generator("cuda").manual_seed(2)
-    plan = [(kind, metas[(True, p)], 0) for p in (4096, 1024, 256, 64)
-            for kind in ("replace", "refine")]
-    plan += [("replace", metas[(False, p)], step) for p in (256, 64) for step in (0, 45)]
-    plan += [("reweight", metas[(True, 4096)], 0)]
+    gen = torch.Generator("cuda").manual_seed(2 if cfg is None else 9)
+    if cfg is None:
+        plan = [(kind, metas[(True, p)], 0) for p in (4096, 1024, 256, 64)
+                for kind in ("replace", "refine")]
+        plan += [("replace", metas[(False, p)], step) for p in (256, 64)
+                 for step in (0, 45)]
+        plan += [("reweight", metas[(True, 4096)], 0)]
+    else:
+        self_max = ctrls["replace"].edit.self_max_pixels
+        plan = [("replace", m, 0) for (cross, p), m in metas.items() if cross]
+        plan += [("replace", m, step) for (cross, p), m in metas.items()
+                 if not cross and p <= self_max for step in (0, 45)]
     cases = []
     for kind, meta, step in plan:
         ctrl = ctrls[kind]
@@ -322,21 +355,24 @@ def k2_cases(torch):
                             device="cuda") for _ in range(2))
         label = (f"{'cross' if meta.is_cross else 'self'} {kind} P={meta.pixels} "
                  f"D={d} K={meta.key_len} Kp={spec.pad_len} step={step}")
+        if cfg is not None:
+            label = f"{cfg.name} {label}"
         cases.append((label, spec, ops, q, k, v, d ** -0.5))
     return cases
 
 
-def k2_phases(torch, K, F, dtype=None):
-    """K2 at its 13 main-path geometries (:func:`k2_cases`), each twice for
-    bitwise-equal outputs, within ``TC_TOL`` (f32) or ``BF16_TOL`` (q, k
-    and v cast to ``dtype`` bf16) of the plain output's largest
-    magnitude."""
+def k2_phases(torch, K, F, dtype=None, cfgs=(None,)):
+    """K2 at its 13 main-path geometries (:func:`k2_cases`), or at each
+    SD-2.1 config's of ``cfgs``, each twice for bitwise-equal outputs,
+    within ``TC_TOL`` (f32) or ``BF16_TOL`` (q, k and v cast to ``dtype``
+    bf16) of the plain output's largest magnitude."""
     from p2p_tpu_torch.kernels.fused_edit import fold_operands
 
     bf16 = dtype is not None
     tag, tol = ("K2 bf16", BF16_TOL) if bf16 else ("K2", TC_TOL)
     rows = []
-    for label, spec, ops, q, k, v, scale in k2_cases(torch):
+    cases = [c for cfg in cfgs for c in k2_cases(torch, cfg)]
+    for label, spec, ops, q, k, v, scale in cases:
         if bf16:
             q, k, v = (t.to(dtype) for t in (q, k, v))
         out = K.edit_attention(q, k, v, scale, spec, ops)
@@ -422,6 +458,155 @@ def k1_bf16_phases(torch, K, F):
         print(f"{label}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
               f"sdpa bf16 {r['library_ms']:.4f} ms  {bound_text(r)}")
     return rows
+
+
+def k1_d64_phases(torch, K, F, dtype):
+    """K1 at d = 64, SD-2.1's head dim, in ``dtype`` (f32: flash_d64_kernel,
+    within ``TC_TOL``; bf16: flash_d64_bf16_kernel, within ``BF16_TOL`` of
+    the plain output's largest magnitude): the self sites of the 768-v
+    edit, (4, 5, 9216, 64) and (4, 10, 2304, 64), and of the 512-base one,
+    (4, 5, 4096, 64), then the ragged lengths S = 4100 and Sq = 300 with
+    Sk = 70; each bitwise across two launches, the path shapes timed beside
+    SDPA in ``dtype``."""
+    bf16 = dtype == torch.bfloat16
+    tag = "K1 bf16 d=64" if bf16 else "K1 d=64"
+    gen = torch.Generator("cuda").manual_seed(10 if bf16 else 11)
+    rows = []
+    for shape_q, sk in (((4, 5, 9216, 64), 9216), ((4, 10, 2304, 64), 2304),
+                        ((4, 5, 4096, 64), 4096), ((1, 2, 4100, 64), 4100),
+                        ((1, 2, 300, 64), 70)):
+        b, h, sq, d = shape_q
+        q = torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        scale = d ** -0.5
+        label = f"{tag} {shape_q} Sk={sk}"
+        out = K.flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = K.flash_attention_plain(q, k, v, scale)
+        if bf16:
+            err = rel_err(torch, out, want, label, BF16_TOL)
+        else:
+            err = max_err(torch, out, want)
+            print(f"  {label}: max|Δ| {err:.3g}")
+            if err > TC_TOL:
+                raise RuntimeError(f"{label}: max|Δ| {err} > {TC_TOL}")
+        if not torch.equal(out, K.flash_attention(q, k, v, scale)):
+            raise RuntimeError(f"{label}: two launches differ")
+        if b == 1:
+            continue
+        rows.append({
+            "shape": list(shape_q), "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), 10),
+            "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 2),
+            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale), 10),
+            **bound(4.0 * b * h * sq * sk * d, 4 * q.element_size() * q.numel(), True, bf16)})
+        r = rows[-1]
+        print(f"{label}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa "
+              f"{r['library_ms']:.4f} ms  {bound_text(r)}")
+    return rows
+
+
+def k3_d64_bf16_phase(torch, K, F):
+    """K3 in bf16 at d = 64, the SD-2.1 inversion's gradient sites (1, 5,
+    4096, 64), and ragged (Sq = 300 with Sk = 70): the output within
+    ``BF16_TOL`` of the plain version's largest magnitude, ``m`` and ``l``
+    within ``TC_TOL`` relative, bitwise across two launches; timed beside
+    SDPA's forward in bf16."""
+    gen = torch.Generator("cuda").manual_seed(12)
+    row = None
+    for shape_q, sk in (((1, 5, 4096, 64), 4096), ((1, 2, 300, 64), 70)):
+        b, h, sq, d = shape_q
+        q = torch.randn(shape_q, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        scale = d ** -0.5
+        tag = f"K3 bf16 d=64 {shape_q} Sk={sk}"
+        got = K.flash_attention_residuals(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = K.flash_attention_residuals_plain(q, k, v, scale)
+        err = rel_err(torch, got[0], want[0], f"{tag} out", BF16_TOL)
+        for name, a, w in zip(("l", "m"), got[1:], want[1:]):
+            rel_err(torch, a, w, f"{tag} {name}", TC_TOL)
+        if not all(torch.equal(a, b2) for a, b2 in zip(
+                got, K.flash_attention_residuals(q, k, v, scale))):
+            raise RuntimeError(f"{tag}: two launches differ")
+        if row is None:
+            row = {"shape": list(shape_q), "max_abs_err": err,
+                   "ms": cuda_ms(torch, lambda: K.flash_attention_residuals(
+                       q, k, v, scale), 20),
+                   "plain_ms": cuda_ms(torch, lambda: K.flash_attention_residuals_plain(
+                       q, k, v, scale), 3),
+                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                       q, k, v, scale=scale), 20),
+                   **bound(4.0 * b * h * sq * sk * d, 4 * 2 * q.numel() + 2 * 4 * b * h * sq,
+                           True, bf16=True)}
+            print(f"{tag}: kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                  f"sdpa fwd bf16 {row['library_ms']:.4f} ms  {bound_text(row)}")
+    return row
+
+
+def window_sum_phase(torch, K):
+    """The bf16 sums of the norms' backward at the SD-1.4 bf16 inversion's
+    shapes, each a view of the port's NCHW cotangent in the JAX package's
+    NHWC order as the backward hands it over: a group norm's mean over
+    (pixels, channels of a group) and its inverse deviation and shift over
+    the pixels, at 64² x 320 channels and 8² x 1280, and a layer norm's
+    statistics over 320 and 1280 channels. Bitwise equal to the plain
+    version (the same adds in the same order) and across two launches;
+    timed beside ``torch.sum`` in bf16, which accumulates in f32."""
+    gen = torch.Generator("cuda").manual_seed(13)
+    rows = []
+    for shape, dims in (((1, 32, 10, 64, 64), (1, 2, 4)), ((1, 32, 10, 64, 64), (1, 2)),
+                        ((1, 32, 40, 8, 8), (1, 2, 4)), ((1, 4096, 320), (2,)),
+                        ((1, 64, 1280), (2,))):
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        if x.dim() == 5:
+            x = x.permute(0, 3, 4, 1, 2)
+        tag = f"window sum {tuple(x.shape)} over {dims}"
+        got = K.window_sum(x, dims)
+        torch.cuda.synchronize()
+        want = K.window_sum_plain(x, dims)
+        if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+            raise RuntimeError(f"{tag}: differs from its plain version "
+                               f"(max|Δ| {max_err(torch, got, want)})")
+        if not torch.equal(got, K.window_sum(x, dims)):
+            raise RuntimeError(f"{tag}: two launches differ")
+        row = {"shape": list(x.shape), "dims": list(dims), "max_abs_err": 0.0,
+               "ms": cuda_ms(torch, lambda: K.window_sum(x, dims), 20),
+               "plain_ms": cuda_ms(torch, lambda: K.window_sum_plain(x, dims), 1, 1),
+               "library_ms": cuda_ms(torch, lambda: torch.sum(x, dims, keepdim=True), 20),
+               **bound(x.numel(), 2 * x.numel() + 2 * got.numel(), False)}
+        print(f"{tag}: bitwise; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+              f"torch.sum {row['library_ms']:.4f} ms  {bound_text(row)}")
+        rows.append(row)
+    return rows
+
+
+def gradient_window_sums(torch, K, pipe, dtype) -> int:
+    """Launches of the norms' backward sums in one null-text gradient of
+    ``pipe``'s U-Net in ``dtype``, at the first outer step, on its own."""
+    from p2p_tpu_torch.engine.inversion import null_text_loss
+    from p2p_tpu_torch.engine.sampler import encode_prompts
+    from p2p_tpu_torch.models.unet import apply_unet
+    from p2p_tpu_torch.ops.schedulers import schedule_from_config
+
+    sched = schedule_from_config(STEPS, pipe.config.scheduler, kind="ddim", device="cuda")
+    t = sched.timesteps.tolist()[0]
+    gen = torch.Generator("cuda").manual_seed(14)
+    latent, target = (torch.randn((1,) + pipe.latent_shape, generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+    with torch.no_grad():
+        cond = encode_prompts(pipe, [PROMPTS[0]], dtype)
+        u = encode_prompts(pipe, [""], dtype).float()
+        eps_cond, _ = apply_unet(pipe.weights(dtype)[0], pipe.config.unet, latent, t, cond)
+    K.reset_launch_counts()
+    u.requires_grad_(True)
+    torch.autograd.grad(null_text_loss(pipe, sched, latent, t, u, eps_cond, target,
+                                       pipe.config.guidance_scale), u)
+    torch.cuda.synchronize()
+    return K.bf16_launch_counts()["window_sum_bf16"]
 
 
 def rel_err(torch, got, want, what: str, tol: float) -> float:
@@ -786,6 +971,9 @@ def inversion_path(torch, K, pipe, dtype=None):
         setattr(inv, name, wrapper)
         return fn
 
+    per_gradient = gradient_window_sums(torch, K, pipe, dtype) if bf16 else 0
+    if bf16 and per_gradient == 0:
+        raise RuntimeError(f"{tag}: a bf16 gradient launched no window sum")
     originals = {name: timed(name) for name in ("ddim_invert", "null_optimize")}
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -810,7 +998,8 @@ def inversion_path(torch, K, pipe, dtype=None):
         want.update({"flash_attn_bf16": forwards + 1, "flash_attn": 1,
                      "flash_attn_residuals_bf16": n * n_grad,
                      "flash_attn_bwd_dq_bf16": n * n_grad,
-                     "flash_attn_bwd_dkv_bf16": n * n_grad})
+                     "flash_attn_bwd_dkv_bf16": n * n_grad,
+                     "window_sum_bf16": n * per_gradient})
     else:
         want.update({"flash_attn": forwards + 2, "flash_attn_residuals": n * n_grad,
                      "flash_attn_bwd_dq": n * n_grad, "flash_attn_bwd_dkv": n * n_grad})
@@ -829,7 +1018,8 @@ def inversion_path(torch, K, pipe, dtype=None):
              "s_null_optimize": seconds["null_optimize"], "inner_iterations": n,
              "ms_per_inner_iteration": seconds["null_optimize"] / n * 1e3,
              "inner_steps": art.inner_steps, "max_memory_allocated": peak,
-             "launches": counts}
+             "launches": counts, "launches_by_head_dim": K.head_dim_launch_counts(),
+             "window_sum_launches_per_gradient": per_gradient}
     print(f"{tag}: {total:.3f} s ({seconds['ddim_invert']:.3f} s DDIM "
           f"inversion, {seconds['null_optimize']:.3f} s optimization); {n} inner "
           f"iterations, {stats['ms_per_inner_iteration']:.2f} ms each (cond and "
@@ -920,6 +1110,92 @@ def replay_path(torch, K, pipe, art, image, f32_latents=None, tag=None):
                              "mse_optimized": err_opt, "mse_raw": err_raw, **stats}
 
 
+def sd21_path(torch, K):
+    """The SD-2.1 768-v edit (``models/config.py:SD21``: 96² latent,
+    v-prediction, the 23-layer gelu text tower, head_dim 64) at full width
+    and depth from random weights of seed 0: 2 prompts, DDIM 50 steps, CFG
+    7.5, ``attention_replace(..., 0.8, 0.4)``, in f32 and in bf16, each with
+    ``kernels=KernelConfig()`` and with ``kernels=None``. The launch counts
+    follow from the layout: K1 at d = 64 at every untouched self site of at
+    least 2048 pixels and K2 (with its fold) at every fused-edit site, a
+    step; one f32 K1 at d = 512 for the VAE decode (f32 in the bf16 run
+    too). f32: final latents within ``DRIFT_TOL`` of the materialized run;
+    bf16: the drift held as the SD-1.4 bf16 edit's (:func:`bf16_drift`)."""
+    from p2p_tpu_torch import KernelConfig, attention_replace, random_pipeline, text2image
+    from p2p_tpu_torch.kernels.dispatch import site_variant
+    from p2p_tpu_torch.models.config import SD21, unet_layout
+    from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
+
+    t0 = time.perf_counter()
+    pipe = random_pipeline(SD21, HashWordTokenizer(), "cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"SD-2.1 768-v random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
+    ctrl = attention_replace(PROMPTS, STEPS, 0.8, 0.4, pipe.tokenizer, store=False)
+    metas = unet_layout(SD21.unet).metas
+    variants = [site_variant(KernelConfig(), ctrl, m) for m in metas]
+    n_k2 = variants.count("fused-edit")
+    n_k1 = sum(1 for v, m in zip(variants, metas) if v == "flash" and m.pixels >= 2048)
+    size = SD21.latent_size
+    x_t = torch.randn((1, size, size, 4), generator=torch.Generator("cuda").manual_seed(8191),
+                      device="cuda")
+
+    def run(kernels, dtype, steps=STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img, _, _, lat = text2image(pipe, PROMPTS, ctrl, num_steps=steps, latent=x_t,
+                                    kernels=kernels, device="cuda", return_latents=True,
+                                    dtype=dtype)
+        torch.cuda.synchronize()
+        return img, lat, time.perf_counter() - t
+
+    stats, counts = {}, {}
+    lat_ref32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tag = "sd21 bf16" if bf16 else "sd21"
+        run(KernelConfig(), dtype, steps=2)          # warm-up: weights, cuDNN
+        K.reset_launch_counts()
+        img, lat, secs = run(KernelConfig(), dtype)
+        c = path_counts(K)
+        dims = K.head_dim_launch_counts()
+        if bf16:
+            want = {**dict.fromkeys(c, 0), "flash_attn_bf16": STEPS * n_k1, "flash_attn": 1,
+                    "fused_edit_bf16": STEPS * n_k2, "fused_edit_fold_bf16": STEPS * n_k2}
+            want_dims = {"K1 bf16 d=64": STEPS * n_k1, "K1 f32 d=512": 1}
+        else:
+            want = {**dict.fromkeys(c, 0), "flash_attn": STEPS * n_k1 + 1,
+                    "fused_edit": STEPS * n_k2, "fused_edit_fold": STEPS * n_k2}
+            want_dims = {"K1 f32 d=64": STEPS * n_k1, "K1 f32 d=512": 1}
+        want["flash_merge"] = vae_merges(torch, pipe, 2)
+        if c != want or dims != want_dims:
+            raise RuntimeError(f"{tag} launch counts {c} {dims}, expected {want} {want_dims}")
+        if (img.shape != (2, SD21.image_size, SD21.image_size, 3) or img.dtype != torch.uint8
+                or lat.dtype != dtype or not bool(torch.isfinite(lat).all())):
+            raise RuntimeError(f"{tag}: images {tuple(img.shape)} {img.dtype}, latents "
+                               f"{lat.dtype} or non-finite")
+        img_ref, lat_ref, secs_ref = run(None, dtype)
+        if bf16:
+            r = bf16_drift(torch, tag, lat, lat_ref, lat_ref32)
+        else:
+            r = {"latent_drift": max_err(torch, lat, lat_ref)}
+            if r["latent_drift"] > DRIFT_TOL:
+                raise RuntimeError(f"{tag}: fused-edit latents drift {r['latent_drift']} "
+                                   f"> {DRIFT_TOL}")
+            lat_ref32 = lat_ref
+        pix = (img.short() - img_ref.short()).abs().float()
+        stats[str(dtype).split(".")[-1]] = {
+            "s_per_pair": secs, "s_per_pair_materialized": secs_ref,
+            "ms_per_step": secs / STEPS * 1e3, **r, "launches": c, "head_dims": dims}
+        counts[dtype] = (c, dims)
+        print(f"{tag}: launches {c} {dims} ({n_k1} K1 and {n_k2} K2 sites); latents "
+              f"max|Δ| vs kernels=None {r['latent_drift']:.3g}; image max|Δ| "
+              f"{pix.max().item():.0f} mean {pix.mean().item():.4f}")
+        print(f"{tag}: {secs:.3f} s per image pair with kernels ({secs / STEPS * 1e3:.2f} "
+              f"ms per step, VAE and text encoder included), {secs_ref:.3f} s with "
+              f"kernels=None")
+    return counts, stats
+
+
 def kernel_entry(name, source, replaces, launches, rows, **extra):
     head = rows[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -938,6 +1214,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
 
@@ -974,6 +1251,14 @@ def main() -> int:
     k2_bf16 = k2_phases(torch, K, F, torch.bfloat16)
     k34_bf16 = k34_bf16_phases(torch, K, F)
     k1_bf16 += k1_d512_bf16_phases(torch, K, F)
+    window_sums = window_sum_phase(torch, K)
+    from p2p_tpu_torch.models.config import SD21, SD21_BASE
+
+    k1_d64 = k1_d64_phases(torch, K, F, torch.float32)
+    k1_d64_bf16 = k1_d64_phases(torch, K, F, torch.bfloat16)
+    k3_d64_bf16 = k3_d64_bf16_phase(torch, K, F)
+    k2_d64 = k2_phases(torch, K, F, cfgs=(SD21, SD21_BASE))
+    k2_d64_bf16 = k2_phases(torch, K, F, torch.bfloat16, cfgs=(SD21, SD21_BASE))
     t0 = time.perf_counter()
     pipe = random_pipeline(SD14, HashWordTokenizer(), "cuda", seed=0)
     torch.cuda.synchronize()
@@ -998,6 +1283,11 @@ def main() -> int:
     replay16i_counts, _, replay16i = replay_path(torch, K, pipe, art16, image,
                                                  tag="replay bf16 of the bf16 artifact")
     replay["bf16_of_bf16_artifact"] = replay16i
+    del pipe, art, art16
+    torch.cuda.empty_cache()
+    sd21_counts, sd21 = sd21_path(torch, K)
+    (c21, dims21), (c21_16, dims21_16) = (sd21_counts[torch.float32],
+                                          sd21_counts[torch.bfloat16])
     inv_counts = inversion["launches"]
     inv16_counts = inversion16["launches"]
     result = {"kernels": [
@@ -1006,6 +1296,8 @@ def main() -> int:
                      merge_launches={"main_path": counts["flash_merge"],
                                      "inversion": inv_counts["flash_merge"],
                                      "replay": replay_counts["flash_merge"]},
+                     sd21_d512_launches={"f32": dims21["K1 f32 d=512"],
+                                         "bf16": dims21_16["K1 f32 d=512"]},
                      units="tensor cores, 3xTF32, at d = 40 (flash_d40_kernel) "
                            "and d = 512 (flash_d512_kernel)",
                      d40_occupancy={"warps": d40_warps, "blocks_per_sm": d40_blocks},
@@ -1066,6 +1358,16 @@ def main() -> int:
                      units="tensor cores, bf16 (flash_bwd_dkv_bf16_kernel)",
                      note="launches from the bf16 inversion; library_ms is SDPA "
                           "forward and backward in bf16"),
+        kernel_entry("window_sum_bf16", "p2p_tpu_torch/csrc/window_sum.cu",
+                     "p2p_tpu/models/nn.py:140", inv16_counts["window_sum_bf16"],
+                     window_sums,
+                     units="CUDA cores, f32 adds rounded to bf16 (window_sum_bf16_kernel)",
+                     note="no pallas_call: the backward of the bf16 norms' broadcasts "
+                          "as XLA compiles it (windowed bf16 sums), so the bf16 "
+                          "gradient rounds where the JAX program's does; launches from "
+                          "the bf16 inversion, per_gradient_launches from one gradient "
+                          "on its own; library_ms is torch.sum in bf16",
+                     per_gradient_launches=inversion16["window_sum_launches_per_gradient"]),
         kernel_entry("fused_edit_bf16", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", counts16["fused_edit_bf16"],
                      k2_bf16,
@@ -1076,7 +1378,37 @@ def main() -> int:
                            "after the fold in f32 writing bf16 (fold_kernel<bf16>)",
                      note="as fused_edit, with bf16 q, k, v, output and folded "
                           "values; sdpa_yardstick_ms is SDPA in bf16"),
-    ], "main_path": path, "inversion": inversion, "replay": replay,
+        kernel_entry("flash_attn_d64", "p2p_tpu_torch/csrc/flash_attn.cu",
+                     "p2p_tpu/models/nn.py:330", dims21["K1 f32 d=64"], k1_d64,
+                     units="tensor cores, 3xTF32 (flash_d64_kernel)",
+                     note="K1 at SD-2.1's head dim 64 (wrapper flash_attention); "
+                          "launches from the sd21 f32 edit; library_ms is SDPA in f32"),
+        kernel_entry("flash_attn_d64_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+                     "p2p_tpu/models/nn.py:330", dims21_16["K1 bf16 d=64"], k1_d64_bf16,
+                     units="tensor cores, bf16 (flash_d64_bf16_kernel, attn_bf16.cuh)",
+                     note="launches from the sd21 bf16 edit; library_ms is SDPA in bf16"),
+        kernel_entry("flash_attn_residuals_d64_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+                     "p2p_tpu/models/nn.py:343",
+                     sum(d.get("K3 bf16 d=64", 0) for d in (
+                         dims21, dims21_16, inversion16["launches_by_head_dim"])),
+                     [k3_d64_bf16],
+                     units="tensor cores, bf16 (flash_d64_bf16_kernel writing m and l)",
+                     note="the SD-2.1 inversion's K3 (next slice), held here; launches "
+                          "from the sd21 edits and the bf16 inversion, none of which "
+                          "runs it; library_ms is SDPA forward in bf16"),
+        kernel_entry("fused_edit_d64", "p2p_tpu_torch/csrc/fused_edit.cu",
+                     "p2p_tpu/kernels/fused_edit.py:210", c21["fused_edit"], k2_d64,
+                     fold_launches=c21["fused_edit_fold"],
+                     units="tensor cores, 3xTF32 (edit_attn_kernel<64>) after fold_kernel",
+                     note="K2 at D = 64, the SD-2.1 geometries (sd21 and sd21base); "
+                          "launches from the sd21 f32 edit; as fused_edit otherwise"),
+        kernel_entry("fused_edit_d64_bf16", "p2p_tpu_torch/csrc/fused_edit.cu",
+                     "p2p_tpu/kernels/fused_edit.py:210", c21_16["fused_edit_bf16"],
+                     k2_d64_bf16, fold_launches=c21_16["fused_edit_fold_bf16"],
+                     units="tensor cores, bf16 (edit_attn_bf16_kernel<64>) after "
+                           "fold_kernel<bf16>",
+                     note="as fused_edit_d64, in bf16; launches from the sd21 bf16 edit"),
+    ], "main_path": path, "inversion": inversion, "replay": replay, "sd21": sd21,
         "replay_launches": replay_counts, "replay_bf16_launches": replay16_counts,
         "replay_bf16_of_bf16_artifact_launches": replay16i_counts,
         "card": card}
@@ -1093,6 +1425,7 @@ def main() -> int:
     print(f"inversion bf16: K3 + K4 bf16 at {n_grad} sites take {k34_16_ms:.3f} ms of "
           f"the {inversion16['ms_per_inner_iteration']:.2f} ms inner iteration "
           f"({100 * k34_16_ms / inversion16['ms_per_inner_iteration']:.1f} %)")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -4,6 +4,7 @@
     python -m p2p_tpu_torch edit --preset sd14 --mode replace \\
         --source "a cat riding a bicycle" --target "a dog riding a bicycle" \\
         --steps 50 --seeds 8191 --kernels --out-dir out/
+    python -m p2p_tpu_torch edit --preset sd21 ...  (SD-2.1 768-v; sd21base 512)
     python -m p2p_tpu_torch invert --preset sd14 --image cat.png \\
         --prompt "a cat riding a bicycle" --artifact out/inversion.npz
     python -m p2p_tpu_torch replay --preset sd14 --artifact out/inversion.npz \\
@@ -14,7 +15,8 @@ Weights are random (from fixed seeds) and prompts go through the hash-word
 tokenizer: loading a checkpoint needs the CLIP BPE tokenizer, which is not
 ported yet. Runs on CUDA unless ``--device cpu`` is given. The JAX CLI's
 flags this slice does not support are rejected with a message, never
-ignored.
+ignored; so are ``invert`` and ``replay`` on the SD-2.1 presets, whose
+inversion needs K4 at head dim 64.
 """
 
 from __future__ import annotations
@@ -44,6 +46,13 @@ def _reject_unsupported(args) -> None:
         if value not in (None, False):
             raise SystemExit(f"{flag} is not supported by p2p_tpu_torch yet "
                              f"(needs {what}, a later slice of the port)")
+
+
+def _reject_inversion(args) -> None:
+    from .engine.inversion import require_k4
+    from .models.config import PRESET_CONFIGS
+
+    require_k4(PRESET_CONFIGS[args.preset], f"{args.cmd} --preset {args.preset}")
 
 
 def _build_pipeline(args):
@@ -152,6 +161,7 @@ def cmd_invert(args) -> int:
     from .engine.inversion import invert, load_image
 
     _reject_unsupported(args)
+    _reject_inversion(args)
     pipe = _build_pipeline(args)
     image = load_image(args.image, size=pipe.config.image_size)
     art = invert(pipe, image, args.prompt, num_steps=args.steps,
@@ -175,6 +185,7 @@ def cmd_replay(args) -> int:
     from .engine.sampler import text2image
 
     _reject_unsupported(args)
+    _reject_inversion(args)
     targets = args.target or []
     pipe = _build_pipeline(args)
     art = InversionArtifact.load(args.artifact)
@@ -210,7 +221,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def model_opts(sp):
-        sp.add_argument("--preset", choices=("tiny", "sd14"), default="tiny")
+        sp.add_argument("--preset", choices=("tiny", "sd14", "sd21", "sd21base"),
+                        default="tiny")
         sp.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' must be "
                              "asked for)")

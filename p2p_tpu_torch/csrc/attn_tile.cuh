@@ -1,5 +1,5 @@
 // Shared tile routines of the port's attention kernel on the CUDA cores
-// (flash_attn.cu at d = 64, 80, 160). f32 throughout: the
+// (flash_attn.cu at d = 80, 160). f32 throughout: the
 // JAX reference runs these products at full f32 precision, which one TF32
 // tensor-core pass (about three decimal digits) does not reach; the kernels
 // that do use the tensor cores take three passes (mma_tf32.cuh).

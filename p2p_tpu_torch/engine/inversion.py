@@ -37,7 +37,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.flash_bwd import SUPPORTED_HEAD_DIMS as K4_HEAD_DIMS
 from ..models import vae as vae_mod
+from ..models.config import PipelineConfig, unet_attn_specs
+from ..models.nn import FLASH_MIN_SEQ
 from ..models.unet import apply_unet
 from ..ops import schedulers as sched_mod
 from .sampler import Pipeline, encode_prompts, resolve_device
@@ -103,6 +106,21 @@ def load_image(path: str, size: int = 512, left: int = 0, right: int = 0,
         off = (h - w) // 2
         img = img[off:off + w]
     return np.array(Image.fromarray(img).resize((size, size)))
+
+
+def require_k4(config: PipelineConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` naming ``what`` when the null-text
+    gradient of ``config``'s U-Net needs K4, the flash attention backward,
+    at a head dim it has no kernel for: the head dims of the self sites at
+    ``FLASH_MIN_SEQ`` positions or more."""
+    dims = {ch // heads for _, cross, res, heads, _, ch in unet_attn_specs(config.unet)
+            if not cross and res * res >= FLASH_MIN_SEQ}
+    missing = sorted(dims - set(K4_HEAD_DIMS))
+    if missing:
+        raise NotImplementedError(
+            f"{what}: the null-text inversion needs K4, the flash attention "
+            f"backward, at head dim {', '.join(map(str, missing))}, which "
+            "p2p_tpu_torch does not have yet")
 
 
 def ddim_invert(pipe: Pipeline, schedule: sched_mod.DiffusionSchedule,

@@ -1,11 +1,12 @@
 """The bf16 kernels' arithmetic in plain PyTorch, for the CPU tests.
 
-K1 at d = 40 and K2 also run on bf16 operands (``csrc/attn_bf16.cuh``): one
-bf16 tensor-core product a term with f32 accumulation. A product of two bf16
-values is exact in f32, so the scores are the exact products summed in f32;
-what sets these kernels apart from their plain versions is where they round
-to bf16. :func:`flash` and :func:`fused_edit_folded` compute what the kernels
-compute, step by step, rounding where they round:
+K1 at d = 40 and 64, and K2, also run on bf16 operands
+(``csrc/attn_bf16.cuh``): one bf16 tensor-core product a term with f32
+accumulation. A product of two bf16 values is exact in f32, so the scores
+are the exact products summed in f32; what sets these kernels apart from
+their plain versions is where they round to bf16. :func:`flash` and
+:func:`fused_edit_folded` compute what the kernels compute, step by step,
+rounding where they round:
 
 - K1 rounds the unnormalized probabilities ``p = 2^(s − m2)`` of each
   step of keys (the kernel holds the running max ``m2`` in base 2) to bf16
@@ -28,7 +29,7 @@ import math
 
 import torch
 
-#: Keys a step of ``flash_d40_bf16_kernel``.
+#: Keys a step of ``flash_d40_bf16_kernel`` and ``flash_d64_bf16_kernel``.
 K1_STEP = 64
 
 

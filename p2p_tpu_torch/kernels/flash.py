@@ -9,32 +9,35 @@ replaces ``flash_attention_residuals``, the same Pallas kernel with
 launch the CUDA kernels of ``csrc/flash_attn.cu``: non-causal, unmasked
 ``softmax(q·kᵀ·scale)·v`` in f32, blockwise with an online softmax, so the
 (S, S) scores never exist in device memory; K3 also writes each row's max
-``m`` and sum ``l`` of ``exp(s − m)``. At the paths' head dims, 40 and 512,
-the kernels run on the tensor cores in 3xTF32 (f32 accuracy; :mod:`.tf32`
-emulates both, :func:`.tf32.flash_d40` the d = 40 kernel step by step);
-d = 64, 80 and 160, which no path runs, use an f32 kernel on the CUDA
-cores. At d = 512 the kernel may split the keys among several blocks
-(:func:`key_splits`); a second kernel merges the partial outputs in a fixed
-order (:func:`merge_partials` is its plain version). Main-path shapes: K1
+``m`` and sum ``l`` of ``exp(s − m)``. At the paths' head dims, 40, 64 (the
+SD-2.1 U-Net) and 512, the kernels run on the tensor cores in 3xTF32 (f32
+accuracy; :mod:`.tf32` emulates them, :func:`.tf32.flash_d40` the d = 40
+and d = 64 kernels step by step); d = 80 and 160, which no path runs, use
+an f32 kernel on the CUDA cores. At d = 512 the kernel may split the keys
+among several blocks (:func:`key_splits`); a second kernel merges the
+partial outputs in a fixed order (:func:`merge_partials` is its plain
+version). Main-path shapes: K1
 at the U-Net's 64²-pixel self sites, q/k/v ``(4, 8, 4096, 40)``, and the
 VAE's mid attention ``(2, 1, 4096, 512)`` (no split) and ``(1, 1, 4096,
 512)`` (two splits, in the inversion's encode and decode); K3 at ``(1, 8,
-4096, 40)`` in the null-text inversion's gradient steps.
+4096, 40)`` in the null-text inversion's gradient steps. SD-2.1 runs K1
+at ``(4, 5, 9216, 64)`` and ``(4, 10, 2304, 64)`` (768-v) or ``(4, 5, 4096,
+64)`` (512-base), and its VAE at ``(2, 1, 9216, 512)``.
 
 K1 and K3 also take bf16 q, k and v: at d = 40 (the U-Net's 64²-pixel
 self sites of a bf16 edit, and of a bf16 inversion's forwards and
-gradients) ``flash_d40_bf16_kernel``, at d = 512 (the bf16 VAE encode of a
+gradients) ``flash_d40_bf16_kernel``, at d = 64 (SD-2.1's self sites)
+``flash_d64_bf16_kernel``, at d = 512 (the bf16 VAE encode of a
 bf16 inversion, (1, 1, 4096, 512)) ``flash_d512_bf16_kernel`` with the same
 key split and merge as in f32; both one bf16 tensor-core pass a product
 with f32 accumulation, the unnormalized P rounded to bf16 before P·V as the
 JAX library kernel rounds it (``p.astype(v.dtype)``), the output rounded to
-bf16 once, ``m`` and ``l`` f32 (``l`` the sum of the unrounded P). bf16
-launches count apart, in ``.bf16_launches`` of each wrapper, so the f32
-counts stay what the f32 paths give.
+bf16 once, ``m`` and ``l`` f32 (``l`` the sum of the unrounded P).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
-launches the kernel or raises. Each wrapper counts its own launches in
-``.launches``, and the merges of its split calls in ``.merge_launches``.
+launches the kernel or raises. Each wrapper counts its launches by dtype
+and head dim (one kernel each) in ``.by_head_dim``, and the merges of its
+split calls in ``.merge_launches``.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from . import build
 
 #: Head dims the CUDA kernel is instantiated for, in f32 and in bf16.
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 160, 512)
-SUPPORTED_HEAD_DIMS_BF16 = (40, 512)
+SUPPORTED_HEAD_DIMS_BF16 = (40, 64, 512)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -211,19 +214,24 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, l, m, nsplit > 1
 
 
+def _count_head_dim(wrapper, q: torch.Tensor) -> None:
+    """One more launch of ``wrapper``'s kernel at ``q``'s dtype and head
+    dim, in ``wrapper.by_head_dim`` (keys like ``"bf16 d=64"``): each head
+    dim has a kernel of its own."""
+    key = f"{'bf16' if q.dtype == torch.bfloat16 else 'f32'} d={q.shape[-1]}"
+    wrapper.by_head_dim[key] = wrapper.by_head_dim.get(key, 0) + 1
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """K1: ``softmax(q·kᵀ·scale)·v`` for q ``(B, H, Sq, D)``, k/v
-    ``(B, H, Sk, D)``, contiguous, f32 or (at d = 40 and 512) bf16."""
+    ``(B, H, Sk, D)``, contiguous, f32 or (at d = 40, 64 and 512) bf16."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     out, _, _, merged = _launch("flash_attention", q, k, v, scale,
                                 residuals=False)
-    if q.dtype == torch.bfloat16:
-        flash_attention.bf16_launches += 1
-    else:
-        flash_attention.launches += 1
     flash_attention.merge_launches += merged
+    _count_head_dim(flash_attention, q)
     return out
 
 
@@ -232,22 +240,17 @@ def flash_attention_residuals(q: torch.Tensor, k: torch.Tensor,
     """K3: ``(out, l, m)`` — K1's output plus each row's softmax sum ``l``
     and max ``m``, f32 ``(B, H, Sq)``; the forward the backward
     (:mod:`.flash_bwd`) pairs with; q, k, v and the output f32 or (at d =
-    40 and 512) bf16."""
+    40, 64 and 512) bf16."""
     if q.device.type == "cpu":
         return flash_attention_residuals_plain(q, k, v, scale)
     out, l, m, merged = _launch("flash_attention_residuals", q, k, v, scale,
                                 residuals=True)
-    if q.dtype == torch.bfloat16:
-        flash_attention_residuals.bf16_launches += 1
-    else:
-        flash_attention_residuals.launches += 1
     flash_attention_residuals.merge_launches += merged
+    _count_head_dim(flash_attention_residuals, q)
     return out, l, m
 
 
-flash_attention.launches = 0
-flash_attention.bf16_launches = 0
 flash_attention.merge_launches = 0
-flash_attention_residuals.launches = 0
-flash_attention_residuals.bf16_launches = 0
 flash_attention_residuals.merge_launches = 0
+flash_attention.by_head_dim = {}
+flash_attention_residuals.by_head_dim = {}

@@ -1,8 +1,8 @@
 """Model configurations and static attention-layout derivation.
 
 A jax-free copy of the slice of ``p2p_tpu/models/config.py`` the port runs:
-the SD-1.4 and TINY configs, :func:`unet_attn_specs` and
-:func:`unet_layout`. The attention structure is a pure function of the
+the SD-1.4, SD-2.1 (768-v and 512-base) and TINY configs,
+:func:`unet_attn_specs` and :func:`unet_layout`. The attention structure is a pure function of the
 config: :func:`unet_attn_specs` enumerates every attention call site (place,
 kind, resolution, heads, key length) in exact call order and feeds
 ``controllers.base.build_layout``. ``tests/test_torch_copies.py`` holds the
@@ -204,8 +204,25 @@ SD14 = PipelineConfig("sd-v1.4", SD14_UNET, SD14_TEXT, SD14_VAE, image_size=512)
 TINY = PipelineConfig("tiny", TINY_UNET, TINY_TEXT, TINY_VAE, image_size=64,
                       num_steps=4)
 
+# SD-2.1 family: OpenCLIP ViT-H text tower realized as 23 transformer layers
+# (diffusers' checkpoint conversion truncates layer 24 so the final-LN
+# output is the penultimate hidden state SD-2 conditions on), gelu
+# activation, 1024-wide context; U-Net at fixed head_dim 64 (5, 10 and 20
+# heads per level). The 768-v variant predicts v, not ε.
+SD21_TEXT = TextEncoderConfig(hidden_dim=1024, num_layers=23, num_heads=16,
+                              activation="gelu")
+SD21_UNET = UNetConfig(context_dim=1024, head_dim=64)
+SD21_BASE = PipelineConfig("sd-v2.1-base", SD21_UNET, SD21_TEXT, SD14_VAE,
+                           image_size=512)
+SD21 = PipelineConfig(
+    "sd-v2.1", dataclasses.replace(SD21_UNET, sample_size=96), SD21_TEXT,
+    SD14_VAE, image_size=768,
+    scheduler=SchedulerConfig(prediction_type="v_prediction"))
+
 # The presets this slice of the port runs (CLI ``--preset``).
 PRESET_CONFIGS = {
     "tiny": TINY,
     "sd14": SD14,
+    "sd21": SD21,
+    "sd21base": SD21_BASE,
 }

@@ -65,6 +65,22 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     return F.conv2d(x, weight, stride=stride, padding=padding) + bias[:, None, None]
 
 
+def _broadcast(a: torch.Tensor, shape, order=None) -> torch.Tensor:
+    """``a``, a norm's statistic rounded below f32, as broadcast over
+    ``shape``. Where autograd records it, the backward sums its cotangent
+    as the JAX program's compiled backward does, in the carrier dtype with
+    the running sum rounded at every add, windowed as XLA's CPU compiler
+    windows it, over the broadcast dimensions taken in the JAX package's
+    order (``order``: the dimensions of ``shape`` in that order)
+    (``kernels.reduce``); autograd's own sum accumulates in f32 and
+    rounds once."""
+    if not (torch.is_grad_enabled() and a.requires_grad):
+        return a
+    from ..kernels.reduce import BroadcastWindowSum
+
+    return BroadcastWindowSum.apply(a, shape, order)
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over the channel axis 1 of an N C ... tensor, with
@@ -83,15 +99,17 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     xg = x.reshape(n, g, c // g, *x.shape[2:])
     red = tuple(range(2, xg.dim()))
     expand = (None,) * (x.dim() - 2)
+    nhwc = [0, *range(3, xg.dim()), 1, 2]           # (n, pixels..., g, c/g)
     mean = xg.float().mean(dim=red, keepdim=True)
     m16 = mean.to(x.dtype)
-    centered = xg - m16
+    centered = xg - _broadcast(m16, xg.shape, nhwc)
     cvar = (xg.float() - m16.float()).square().mean(dim=red, keepdim=True)
     resid = mean - m16.float()
     var = cvar - resid.square()
     inv = torch.rsqrt(var + eps) * weight.float().reshape(g, c // g)[(..., *expand)]
     shift = bias.float().reshape(g, c // g)[(..., *expand)] - resid * inv
-    y = centered * inv.to(x.dtype) + shift.to(x.dtype)
+    y = (centered * _broadcast(inv.to(x.dtype), xg.shape, nhwc)
+         + _broadcast(shift.to(x.dtype), xg.shape, nhwc))
     return y.reshape(x.shape)
 
 
@@ -107,13 +125,13 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     src = getattr(x, "unrounded", None)
     mean = (x.float() if src is None else src).mean(dim=-1, keepdim=True)
     m16 = mean.to(x.dtype)
-    centered = x - m16
+    centered = x - _broadcast(m16, x.shape)
     cvar = (x.float() - m16.float()).square().mean(dim=-1, keepdim=True)
     resid = mean - m16.float()
     var = cvar - resid.square()
     inv = torch.rsqrt(var + eps)
     scale_shift = bias.float() - resid * inv * weight.float()
-    y = (centered * inv.to(x.dtype)) * weight.to(x.dtype)
+    y = (centered * _broadcast(inv.to(x.dtype), x.shape)) * weight.to(x.dtype)
     return y + scale_shift.to(x.dtype)
 
 
@@ -131,10 +149,56 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+class _SiluLowp(torch.autograd.Function):
+    """``x·σ(x)`` below f32, with the backward the JAX program compiles: its
+    transpose of the forward's primitives, each product and sum rounded to
+    the carrier dtype (``jax.jit(jax.vjp(nn.silu, x)[1])``'s HLO on the
+    CPU): ``c·σ + (x·c)·(σ·(1 − σ))``. Autograd's own backward of the
+    forward's ops rounds in other places (PERF.md §6)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = sigmoid(x)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, c):
+        x, s = ctx.saved_tensors
+        return c * s + (x * c) * (s * (1.0 - s))
+
+
+class _GeluLowp(torch.autograd.Function):
+    """``jax.nn.gelu``'s ``0.5·x·erfc(−x·√½)`` below f32, the argument of
+    ``erfc`` in f32 (XLA drops its round trip), with the backward the JAX
+    program compiles: its transpose, each primitive rounded to the carrier
+    dtype, ``erfc``'s derivative as ``−2/√π·exp(−e²)`` with ``2/√π`` and
+    ``√½`` in the carrier dtype and ``e`` rounded, ``erfc(e)`` itself
+    rounded from the f32 argument (the HLO of ``jax.jit(jax.vjp(nn.gelu,
+    x)[1])`` on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = carrier(math.sqrt(0.5), x)
+        e = x.float() * -r
+        f = torch.special.erfc(e).to(x.dtype)
+        if ctx.needs_input_grad[0]:     # the rounded e only for the backward
+            ctx.save_for_backward(x, e.to(x.dtype), f)
+        return (0.5 * x) * f
+
+    @staticmethod
+    def backward(ctx, c):
+        x, e, f = ctx.saved_tensors
+        r = carrier(math.sqrt(0.5), x)
+        d = ((((0.5 * x) * c) * carrier(-2.0 / math.sqrt(math.pi), x))
+             * torch.exp(-(e * e))) * r
+        return -d + (c * f) * 0.5
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     if _f32(x):
         return F.silu(x)
-    return x * sigmoid(x)
+    return _SiluLowp.apply(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -142,8 +206,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     with √½ in the carrier dtype, the argument of ``erfc`` in f32."""
     if _f32(x):
         return F.gelu(x, approximate="none")
-    return (0.5 * x) * torch.special.erfc(
-        x.float() * -carrier(math.sqrt(0.5), x)).to(x.dtype)
+    return _GeluLowp.apply(x)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -183,6 +246,35 @@ def attention_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
     return torch.softmax(sim, dim=-1)
 
 
+class _ProbsValueLowp(torch.autograd.Function):
+    """``probs·v`` with the f32 ``probs`` rounded to ``v``'s dtype below
+    f32, and the backward the JAX program compiles: the cotangent of the
+    rounded probabilities is the product ``dout·vᵀ`` left in f32 (XLA drops
+    its round trip through the carrier dtype before the f32 softmax reads
+    it), and ``v``'s is ``probsᵀ·dout`` summed in f32 and rounded once."""
+
+    @staticmethod
+    def forward(ctx, probs, v):
+        p16 = probs.to(v.dtype)
+        ctx.save_for_backward(p16, v)
+        return torch.einsum("bhqk,bhkd->bhqd", p16, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        p16, v = ctx.saved_tensors
+        d = dout.float()
+        return (torch.einsum("bhqd,bhkd->bhqk", d, v.float()),
+                torch.einsum("bhqk,bhqd->bhkd", p16.float(), d).to(v.dtype))
+
+
+def probs_value(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``probs·v`` for f32 probabilities ``(B, heads, P, K)`` rounded to
+    ``v``'s dtype, ``v`` ``(B, heads, K, D)``."""
+    if _f32(v):
+        return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+    return _ProbsValueLowp.apply(probs, v)
+
+
 #: Self-attention at or above this many positions goes to the flash kernel
 #: (the JAX package's threshold, ``models/nn.py:fused_attention``).
 FLASH_MIN_SEQ = 2048
@@ -209,5 +301,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         or v.requires_grad):
             return FlashAttentionFunction.apply(q, k, v, scale)
         return flash_attention(q, k, v, scale)
-    probs = attention_probs(q, k, scale, mask).to(v.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    return probs_value(attention_probs(q, k, scale, mask), v)

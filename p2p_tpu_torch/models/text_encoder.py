@@ -1,5 +1,6 @@
 """CLIP text encoder — the PyTorch counterpart of
-``p2p_tpu/models/text_encoder.py`` for the causal CLIP tower SD-1.4 uses.
+``p2p_tpu/models/text_encoder.py`` for the causal CLIP towers: SD-1.4's
+(quick_gelu) and SD-2.1's (23 layers of 1024, exact gelu).
 
 ``ids (B, L) -> (B, L, D)`` final-layer hidden states after the final
 LayerNorm. The causal mask is additive (-1e9 above the diagonal), so its

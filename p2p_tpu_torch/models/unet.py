@@ -113,7 +113,7 @@ def _apply_attention(sd: StateDict, p: str, x: torch.Tensor,
             probs = nn.attention_probs(q, k, scale)       # (B, heads, P, K) f32
             ctx.state, probs = apply_attention_control(
                 ctx.controller, meta, ctx.state, probs, ctx.step)
-            out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+            out = nn.probs_value(probs, v)
     else:
         out = nn.fused_attention(q, k, v, scale)
 

@@ -3,10 +3,12 @@ Replace edit, or an inner iteration of null-text inversion.
 
     python -m p2p_tpu_torch.profile_step               # sampling step
     python -m p2p_tpu_torch.profile_step --dtype bf16  # ... in bf16
+    python -m p2p_tpu_torch.profile_step --preset sd21 # ... of SD-2.1 768-v
     python -m p2p_tpu_torch.profile_step --inversion   # inner iteration
     python -m p2p_tpu_torch.profile_step --inversion --dtype bf16
 
-Random SD-1.4 weights (seed 0), 512², CFG 7.5.
+Random weights (seed 0) of the preset (SD-1.4 at 512² by default; the
+sampling step also of ``sd21`` at 768² or ``sd21base``), CFG 7.5.
 
 The sampling step: 2 prompts, the ``attention_replace`` edit with the store
 off — the ``chip_smoke.py`` main path — in f32 or, with ``--dtype bf16``,
@@ -27,13 +29,17 @@ and the loss read back to the host, as ``engine.inversion.null_optimize``
 runs it, in f32 or, with ``--dtype bf16``, in bf16 (the U-Net, the latent
 and the conditional ε in bf16, the embedding f32 and cast at the call; K1,
 K3 and K4 as their bf16 kernels). ms per inner iteration over 10
-iterations (CUDA events), then a trace of 3 with the same breakdown (K1
-and K3 are one CUDA kernel and share a class).
+iterations (CUDA events); in bf16 also with the norms' backward summed by
+autograd in f32 instead of in the JAX program's windowed bf16 sums
+(``kernels/reduce.py``), in the order windowed, f32, f32, windowed; then a
+trace of 3 with the same breakdown (K1 and K3 are one CUDA kernel and
+share a class).
 
 Prints one JSON object as its last line and writes it to
 ``chiprun_out/profile_step.json`` (``profile_step_bf16.json`` with
 ``--dtype bf16``, ``profile_inner.json`` with ``--inversion``,
-``profile_inner_bf16.json`` with both). Needs a CUDA card.
+``profile_inner_bf16.json`` with both; a preset other than sd14 adds its
+name, ``profile_step_sd21_bf16.json``). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -47,9 +53,10 @@ import time
 import torch
 
 from .controllers.factory import attention_replace
+from .engine.inversion import require_k4
 from .engine.sampler import denoise, encode_prompts, random_pipeline, resolve_device
 from .kernels.dispatch import KernelConfig
-from .models.config import SD14
+from .models.config import PRESET_CONFIGS
 from .utils.tokenizer import HashWordTokenizer
 
 PROMPTS = ["a cat riding a bicycle", "a dog riding a bicycle"]
@@ -58,12 +65,14 @@ PROFILE_STEPS = 3    # traced steps
 
 # Kernel-name fragments of each class, first match wins.
 CLASSES = (
-    ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_d40_bf16_kernel", "flash_fwd_kernel",
+    ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_d40_bf16_kernel", "flash_d64_kernel",
+                          "flash_d64_bf16_kernel", "flash_fwd_kernel",
                           "flash_d512_kernel", "flash_d512_bf16_kernel",
                           "flash_merge_kernel")),
     ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_bf16_kernel")),
     ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_bf16_kernel")),
     ("K2 fused_edit", ("edit_attn_kernel", "edit_attn_bf16_kernel", "fold_kernel")),
+    ("norms' backward sums", ("window_sum_bf16_kernel", "window_sum_block_bf16_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
                      "xmma_fprop")),
     ("matrix product", ("gemm", "gemv", "cutlass", "ampere_s", "sm90_xmma", "magma",
@@ -177,6 +186,7 @@ def _sampling_step(pipe, device, tok, dtype) -> dict:
 
 def _inner_iteration(pipe, device, dtype) -> dict:
     from .engine.inversion import null_text_loss
+    from .models import nn
     from .models.unet import apply_unet
     from .ops.schedulers import schedule_from_config
 
@@ -198,8 +208,21 @@ def _inner_iteration(pipe, device, dtype) -> dict:
             loss.item()
 
     run(2)                                        # warm-up: cuDNN, allocator
-    return {"ms_per_inner_iteration": _cuda_ms(lambda: run(STEPS), STEPS),
-            **_breakdown(lambda: run(PROFILE_STEPS), PROFILE_STEPS)}
+    result = {"ms_per_inner_iteration": _cuda_ms(lambda: run(STEPS), STEPS)}
+    if dtype != torch.float32:
+        # What summing the norms' backward as the JAX program does costs:
+        # the iteration again with autograd's own f32 sums.
+        windowed, times = nn._broadcast, {"windowed": [], "f32": []}
+        try:
+            for label in ("windowed", "f32", "f32", "windowed"):
+                nn._broadcast = windowed if label == "windowed" else \
+                    (lambda a, shape, order=None: a)
+                run(1)
+                times[label].append(_cuda_ms(lambda: run(STEPS), STEPS))
+        finally:
+            nn._broadcast = windowed
+        result["ms_per_inner_iteration_by_norm_sums"] = times
+    return {**result, **_breakdown(lambda: run(PROFILE_STEPS), PROFILE_STEPS)}
 
 
 def main(argv=None) -> dict:
@@ -209,19 +232,27 @@ def main(argv=None) -> dict:
                         "sampling step")
     p.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
                    help="compute dtype of the sampling step or inner iteration")
+    p.add_argument("--preset", choices=("sd14", "sd21", "sd21base"), default="sd14")
     args = p.parse_args(argv)
+    if args.inversion:
+        try:
+            require_k4(PRESET_CONFIGS[args.preset], f"--inversion --preset {args.preset}")
+        except NotImplementedError as e:
+            p.error(str(e))
     device = resolve_device("cuda")
     tok = HashWordTokenizer()
-    pipe = random_pipeline(SD14, tok, device, seed=0)
+    pipe = random_pipeline(PRESET_CONFIGS[args.preset], tok, device, seed=0)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     result = _inner_iteration(pipe, device, dtype) if args.inversion else \
         _sampling_step(pipe, device, tok, dtype)
     result["dtype"] = args.dtype
+    result["preset"] = args.preset
     result["card"] = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     name = (f"profile_{'inner' if args.inversion else 'step'}"
+            f"{'' if args.preset == 'sd14' else '_' + args.preset}"
             f"{'_bf16' if args.dtype == 'bf16' else ''}.json")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", name), "w") as f:

@@ -99,13 +99,17 @@ def test_factory_parameters(mode):
 
 
 def test_configs_and_layouts():
-    for name in ("SD14", "TINY"):
+    for name in ("SD14", "TINY", "SD21_TEXT", "SD21_UNET", "SD21_BASE", "SD21"):
         jc, pc = getattr(j_config, name), getattr(p_config, name)
         assert dataclass_dict(pc) == dataclass_dict(jc)
+        if not hasattr(pc, "unet"):
+            continue
         assert p_config.unet_attn_specs(pc.unet) == j_config.unet_attn_specs(jc.unet)
         assert (p_config.unet_layout(pc.unet).metas
                 == tuple(_same_meta(m) for m in j_config.unet_layout(jc.unet).metas))
     assert len(p_config.unet_attn_specs(p_config.SD14.unet)) == 32
+    assert {n: dataclass_dict(c) for n, c in p_config.PRESET_CONFIGS.items()} == {
+        n: dataclass_dict(j_config.PRESET_CONFIGS[n]) for n in p_config.PRESET_CONFIGS}
 
 
 def dataclass_dict(obj):
@@ -124,7 +128,7 @@ def _same_meta(m):
                     m.key_len, m.store_slot, m.channels)
 
 
-@pytest.mark.parametrize("preset", ["SD14", "TINY"])
+@pytest.mark.parametrize("preset", ["SD14", "TINY", "SD21", "SD21_BASE"])
 def test_checkpoint_name_tables(preset):
     jc, pc = getattr(j_config, preset), getattr(p_config, preset)
     assert p_ck.unet_entries(pc.unet) == j_ck.unet_entries(jc.unet)
