@@ -2,8 +2,8 @@
 """Chip smoke of the PyTorch/H100 port: builds the CUDA kernels, holds each
 against its plain PyTorch version at every geometry its paths give it, and
 drives the SD-1.4 Replace edit, a null-text inversion and its replay edit,
-and the SD-2.1 768-v Replace edit, end to end through the package's entry
-points.
+and the SD-2.1 768-v Replace edit, null-text inversion and replay, end to
+end through the package's entry points.
 
     python3 chip_smoke.py
 
@@ -36,7 +36,9 @@ Phases, each of which raises on failure:
    VAE, and the final latents must agree with the ``kernels=None`` run
    within 1e-2;
 4. the inversion path: ``invert`` of a seeded 512² image at the reference
-   defaults (50 steps, 10 inner steps, early stop 1e-5, CFG 7.5); the
+   defaults but the depth (10 inner steps, early stop 1e-5, CFG 7.5; 20
+   outer steps, cut from 50, ``SD14_INVERSION_STEPS``, to keep the script
+   near half its time limit beside phase 8's 768-v inversions); the
    launch counts must be exactly what the layout and the inner-iteration
    counts give (see ``inversion_path``), K1's key-split merge once per
    d = 512 call that splits its keys on this card, and every embedding
@@ -65,7 +67,7 @@ Phases, each of which raises on failure:
    ragged, each within ``BF16_TOL`` of its bf16 plain version's largest
    magnitude and bitwise across two launches, timed beside SDPA in bf16
    (forward, or forward and backward for K4) and the bf16 bound; then
-   ``invert(dtype=torch.bfloat16)`` at the reference defaults on the same
+   ``invert(dtype=torch.bfloat16)`` at phase 4's settings on the same
    image, with exact launch counts (bf16 K1 at d = 40 for every forward
    without gradient and the encode's bf16 K1 at d = 512, one f32 K1 for the
    reconstruction's decode, bf16 K3 and K4 at the gradient's sites, a merge
@@ -79,15 +81,28 @@ Phases, each of which raises on failure:
    at d = 64 in f32 (``flash_d64_kernel``, 3xTF32, within ``TC_TOL``) and
    bf16 (``flash_d64_bf16_kernel``, within ``BF16_TOL``) at the self sites
    of both configs, (4, 5, 9216, 64), (4, 10, 2304, 64) and (4, 5, 4096,
-   64), and ragged; K3 in bf16 at d = 64, (1, 5, 4096, 64); K2 at every
-   D = 64 geometry of both configs' Replace edits in both dtypes; K1 at
-   d = 512 at the 768² VAE's (2, 1, 9216, 512) (in phase 2); each bitwise
-   across two launches and timed beside its plain version, its bound and
-   SDPA. Then the 768-v edit (2 prompts, DDIM 50 steps, CFG 7.5,
-   ``attention_replace(..., 0.8, 0.4)``) in f32 and in bf16 with exact
-   launch counts by head dim (``kernels.head_dim_launch_counts``), the f32
-   drift within ``DRIFT_TOL`` and the bf16 drift held as in phase 6;
-   the 512-base config runs only its kernel geometries;
+   64), and ragged; K3 (f32 ``m``, ``l`` within ``TC_TOL`` relative) and
+   both K4 passes at d = 64 in f32 (3xTF32, within ``TC_TOL``) and bf16
+   (within ``BF16_TOL``) at the inversion's gradient sites of both
+   configs, (1, 5, 9216, 64), (1, 10, 2304, 64) and (1, 5, 4096, 64), and
+   ragged; K2 at every D = 64 geometry of both configs' Replace edits in
+   both dtypes; K1 at d = 512 at the 768² VAE's (2, 1, 9216, 512) and (1,
+   1, 9216, 512) (in phases 2 and 7) and the norms' window sums at 768-v's
+   shapes (phase 7); each bitwise across two launches and timed beside its
+   plain version, its bound and SDPA. Then the 768-v edit (2 prompts, DDIM
+   50 steps, CFG 7.5, ``attention_replace(..., 0.8, 0.4)``) in f32 and in
+   bf16 with exact launch counts by head dim
+   (``kernels.head_dim_launch_counts``), the f32 drift within
+   ``DRIFT_TOL`` and the bf16 drift held as in phase 6; then the 768-v
+   null-text inversion of a seeded 768² image at the reference defaults
+   (50 outer steps, 10 inner, early stop 1e-5) in f32 and in bf16, with
+   exact launch counts by kernel and head dim (9 K3 and 9 of each K4 pass
+   at d = 64 an inner iteration, 4 at 96² and 5 at 48²), finite outputs,
+   the bf16 run's time beside the f32 one's and their RMS distances, and
+   the replay of each artifact (LocalBlend at 24): the f32 one in f32
+   (drift within ``DRIFT_TOL``), the bf16 one in bf16 (drift held against
+   its own f32 materialized replay as in phase 6), each with the null-text
+   invariant; the 512-base config runs only its kernel geometries;
 9. the script's wall time, one ``{"kernels": [...]}`` line, then the device
    line last.
 
@@ -128,6 +143,10 @@ BF16_DRIFT_FACTOR = math.sqrt(2.0)
 STEPS = 50
 PROMPTS = ["a cat riding a bicycle", "a dog riding a bicycle"]
 INNER_STEPS = 10       # null-text inner iterations per outer step
+# Outer steps of the SD-1.4 inversions (and so of their replays): cut from
+# the reference's 50 to keep the script near half its time limit beside the
+# SD-2.1 768-v inversions, which run all 50.
+SD14_INVERSION_STEPS = 20
 EARLY_STOP = 1e-5      # null-text early-stop threshold
 IMAGE_SEED = 0         # the inverted image, uint8 noise from numpy
 BLEND_WORDS = (("cat",), ("dog",))
@@ -223,6 +242,12 @@ def path_counts(K) -> dict:
             "fused_edit_fold": K.fold_launches(), **K.bf16_launch_counts()}
 
 
+def vae_head_dim(cfg) -> int:
+    """The head dim of the VAE's mid attention, one head over its widest
+    channels: 512 at SD's VAE."""
+    return cfg.vae.base_channels * cfg.vae.channel_mults[-1]
+
+
 def vae_merges(torch, pipe, batch: int) -> int:
     """Merge launches of one K1 call at the VAE's mid attention, d = 512:
     1 when the card's SM count makes the call split its keys, else 0."""
@@ -236,15 +261,16 @@ def vae_merges(torch, pipe, batch: int) -> int:
 def k1_phases(torch, K, F):
     """K1 at the U-Net 64² self sites and the VAE mid attention: batch 4 and
     2 on the edit paths, batch 1 in the inversion (its forwards without
-    gradient, and the VAE encode), and SD-2.1's VAE at 96² latent pixels
-    (2, 1, 9216, 512), each twice for bitwise-equal outputs;
+    gradient, and the VAE encode), and SD-2.1's VAE at 96² latent pixels,
+    (2, 1, 9216, 512) in the edit and (1, 1, 9216, 512) in the inversion
+    (no key split: 144 one-SM blocks), each twice for bitwise-equal outputs;
     then both kernels at ragged lengths (S = 4100, and Sq = 300 with
     Sk = 70), the d = 512 one also with K3's residuals."""
     gen = torch.Generator("cuda").manual_seed(1)
     rows = []
     for shape, iters in (((4, 8, 4096, 40), 20), ((2, 1, 4096, 512), 10),
                          ((1, 8, 4096, 40), 20), ((1, 1, 4096, 512), 10),
-                         ((2, 1, 9216, 512), 5)):
+                         ((2, 1, 9216, 512), 5), ((1, 1, 9216, 512), 5)):
         b, h, s, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         scale = d ** -0.5
@@ -508,59 +534,126 @@ def k1_d64_phases(torch, K, F, dtype):
     return rows
 
 
-def k3_d64_bf16_phase(torch, K, F):
-    """K3 in bf16 at d = 64, the SD-2.1 inversion's gradient sites (1, 5,
-    4096, 64), and ragged (Sq = 300 with Sk = 70): the output within
-    ``BF16_TOL`` of the plain version's largest magnitude, ``m`` and ``l``
-    within ``TC_TOL`` relative, bitwise across two launches; timed beside
-    SDPA's forward in bf16."""
-    gen = torch.Generator("cuda").manual_seed(12)
-    row = None
-    for shape_q, sk in (((1, 5, 4096, 64), 4096), ((1, 2, 300, 64), 70)):
+def k34_d64_phases(torch, K, F, dtype):
+    """K3 (forward with residuals) and both K4 passes at d = 64, SD-2.1's
+    gradient sites, in ``dtype``: 768-v's (1, 5, 9216, 64) and (1, 10,
+    2304, 64) and 512-base's (1, 5, 4096, 64), then the ragged lengths S =
+    4100 and Sq = 300 with Sk = 70. Outputs and gradients within ``TC_TOL``
+    (f32: flash_d64_kernel, flash_bwd_{dkv,dq}_kernel<64>, all 3xTF32) or
+    ``BF16_TOL`` (bf16: flash_d64_bf16_kernel and the bf16 passes) of the
+    plain versions' largest magnitude, K3's f32 ``m`` and ``l`` within
+    ``TC_TOL`` relative, each bitwise across two launches; the K4 passes
+    take the plain forward's residuals. The path shapes are timed beside
+    the plain versions, the bound and SDPA in ``dtype``: forward for K3,
+    forward and backward for K4. Returns ``{"K3" | "K4_dkv" | "K4_dq":
+    rows}``."""
+    bf16 = dtype == torch.bfloat16
+    tol, tag = (BF16_TOL, "bf16 d=64") if bf16 else (TC_TOL, "d=64")
+    gen = torch.Generator("cuda").manual_seed(15 if bf16 else 16)
+    rows = {"K3": [], "K4_dkv": [], "K4_dq": []}
+    for shape_q, sk in (((1, 5, 9216, 64), 9216), ((1, 10, 2304, 64), 2304),
+                        ((1, 5, 4096, 64), 4096), ((1, 2, 4100, 64), 4100),
+                        ((1, 2, 300, 64), 70)):
         b, h, sq, d = shape_q
-        q = torch.randn(shape_q, generator=gen, device="cuda").bfloat16()
-        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").bfloat16()
+        q, do = (torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
         scale = d ** -0.5
-        tag = f"K3 bf16 d=64 {shape_q} Sk={sk}"
+        label = f"{shape_q} Sk={sk}"
         got = K.flash_attention_residuals(q, k, v, scale)
         torch.cuda.synchronize()
         want = K.flash_attention_residuals_plain(q, k, v, scale)
-        err = rel_err(torch, got[0], want[0], f"{tag} out", BF16_TOL)
+        err3 = rel_err(torch, got[0], want[0], f"K3 {tag} {label} out", tol)
         for name, a, w in zip(("l", "m"), got[1:], want[1:]):
-            rel_err(torch, a, w, f"{tag} {name}", TC_TOL)
+            rel_err(torch, a, w, f"K3 {tag} {label} {name}", TC_TOL)
         if not all(torch.equal(a, b2) for a, b2 in zip(
                 got, K.flash_attention_residuals(q, k, v, scale))):
-            raise RuntimeError(f"{tag}: two launches differ")
-        if row is None:
-            row = {"shape": list(shape_q), "max_abs_err": err,
-                   "ms": cuda_ms(torch, lambda: K.flash_attention_residuals(
-                       q, k, v, scale), 20),
-                   "plain_ms": cuda_ms(torch, lambda: K.flash_attention_residuals_plain(
-                       q, k, v, scale), 3),
-                   "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                       q, k, v, scale=scale), 20),
-                   **bound(4.0 * b * h * sq * sk * d, 4 * 2 * q.numel() + 2 * 4 * b * h * sq,
-                           True, bf16=True)}
-            print(f"{tag}: kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-                  f"sdpa fwd bf16 {row['library_ms']:.4f} ms  {bound_text(row)}")
-    return row
+            raise RuntimeError(f"K3 {tag} {label}: two launches differ")
+        o, l, m = want
+        di = (o.float() * do.float()).sum(dim=-1)
+        dk, dv = K.flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale)
+        dq = K.flash_attention_bwd_dq(q, k, v, do, l, m, di, scale)
+        torch.cuda.synchronize()
+        if not all(t.dtype == dtype for t in (dq, dk, dv)):
+            raise RuntimeError(f"K4 {tag} {label}: gradients {dq.dtype}, {dk.dtype}, "
+                               f"{dv.dtype}")
+        p_dk, p_dv = K.flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
+        p_dq = K.flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale)
+        err_dkv = max(rel_err(torch, dk, p_dk, f"K4 {tag} {label} dk", tol),
+                      rel_err(torch, dv, p_dv, f"K4 {tag} {label} dv", tol))
+        err_dq = rel_err(torch, dq, p_dq, f"K4 {tag} {label} dq", tol)
+        dk2, dv2 = K.flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale)
+        dq2 = K.flash_attention_bwd_dq(q, k, v, do, l, m, di, scale)
+        for name, a, b2 in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+            if not torch.equal(a, b2):
+                raise RuntimeError(f"K4 {tag} {label} {name}: two launches differ")
+        if h == 2:                               # ragged: checked, not timed
+            continue
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        sdpa_fb_ms = cuda_ms(torch, sdpa_fwd_bwd, 5)
+        n = q.element_size() * q.numel()         # bytes of one (B, H, S, D) tensor
+        stats = 4 * b * h * sq                   # bytes of one (B, H, S) f32 tensor
+        flops = 2.0 * b * h * sq * sk * d        # one S x S x d product
+        iters = 5 if sq == 9216 else 10
+        common = {"shape": list(shape_q)}
+        rows["K3"].append({**common, "max_abs_err": err3,
+                           "ms": cuda_ms(torch, lambda: K.flash_attention_residuals(
+                               q, k, v, scale), iters),
+                           "plain_ms": cuda_ms(torch, lambda: K.flash_attention_residuals_plain(
+                               q, k, v, scale), 2),
+                           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                               q, k, v, scale=scale), iters),
+                           **bound(2 * flops, 4 * n + 2 * stats, True, bf16)})
+        rows["K4_dkv"].append({**common, "max_abs_err": err_dkv,
+                               "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
+                                   q, k, v, do, l, m, di, scale), iters),
+                               "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
+                                   q, k, v, do, l, m, di, scale), 2),
+                               "library_ms": sdpa_fb_ms,
+                               **bound(4 * flops, 6 * n + 3 * stats, True, bf16)})
+        rows["K4_dq"].append({**common, "max_abs_err": err_dq,
+                              "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
+                                  q, k, v, do, l, m, di, scale), iters),
+                              "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
+                                  q, k, v, do, l, m, di, scale), 2),
+                              "library_ms": sdpa_fb_ms,
+                              **bound(3 * flops, 5 * n + 3 * stats, True, bf16)})
+        for name in rows:
+            r = rows[name][-1]
+            print(f"{name} {tag} {label}: max|Δ| {r['max_abs_err']:.3g}  kernel "
+                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa "
+                  f"{'fwd' if name == 'K3' else 'fwd+bwd'} {r['library_ms']:.4f} ms  "
+                  f"{bound_text(r)}")
+    print(f"K3/K4 {tag}: two launches give bitwise-equal outputs at every geometry")
+    return rows
 
 
 def window_sum_phase(torch, K):
-    """The bf16 sums of the norms' backward at the SD-1.4 bf16 inversion's
-    shapes, each a view of the port's NCHW cotangent in the JAX package's
-    NHWC order as the backward hands it over: a group norm's mean over
-    (pixels, channels of a group) and its inverse deviation and shift over
-    the pixels, at 64² x 320 channels and 8² x 1280, and a layer norm's
-    statistics over 320 and 1280 channels. Bitwise equal to the plain
-    version (the same adds in the same order) and across two launches;
-    timed beside ``torch.sum`` in bf16, which accumulates in f32."""
+    """The bf16 sums of the norms' backward at the bf16 inversions' shapes,
+    each a view of the port's NCHW cotangent in the JAX package's NHWC
+    order as the backward hands it over: a group norm's mean over (pixels,
+    channels of a group) and its inverse deviation and shift over the
+    pixels, at 64² x 320 channels and 8² x 1280 (SD-1.4) and at 96² x 320
+    and 48² x 640 (SD-2.1 768-v), and a layer norm's statistics over the
+    channels, 320 and 1280 (SD-1.4) and 320, 640 and 1280 at 9216, 2304 and
+    576 tokens (768-v). Bitwise equal to the plain version (the same adds
+    in the same order) and across two launches; timed beside ``torch.sum``
+    in bf16, which accumulates in f32."""
     gen = torch.Generator("cuda").manual_seed(13)
     rows = []
     for shape, dims in (((1, 32, 10, 64, 64), (1, 2, 4)), ((1, 32, 10, 64, 64), (1, 2)),
                         ((1, 32, 40, 8, 8), (1, 2, 4)), ((1, 4096, 320), (2,)),
-                        ((1, 64, 1280), (2,))):
+                        ((1, 64, 1280), (2,)),
+                        ((1, 32, 10, 96, 96), (1, 2, 4)), ((1, 32, 10, 96, 96), (1, 2)),
+                        ((1, 32, 20, 48, 48), (1, 2, 4)), ((1, 32, 20, 48, 48), (1, 2)),
+                        ((1, 9216, 320), (2,)), ((1, 2304, 640), (2,)),
+                        ((1, 576, 1280), (2,))):
         x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
         if x.dim() == 5:
             x = x.permute(0, 3, 4, 1, 2)
@@ -801,15 +894,16 @@ def k34_bf16_phases(torch, K, F):
 
 def k1_d512_bf16_phases(torch, K, F):
     """K1 in bf16 at d = 512: the bf16 VAE encode of the inversion, (1, 1,
-    4096, 512), then the ragged lengths S = 4100 and Sq = 300 with Sk = 70
-    (also with K3's residuals there); within ``BF16_TOL`` of the bf16 plain
-    version's largest magnitude (the residuals within ``TC_TOL``), bitwise
-    across two launches; timed with its key-split merge beside SDPA in
+    4096, 512) and, at SD-2.1 768-v, (1, 1, 9216, 512), then the ragged
+    lengths S = 4100 and Sq = 300 with Sk = 70 (also with K3's residuals
+    there); within ``BF16_TOL`` of the bf16 plain version's largest
+    magnitude (the residuals within ``TC_TOL``), bitwise across two
+    launches; timed with its key-split merge (if any) beside SDPA in
     bf16."""
     gen = torch.Generator("cuda").manual_seed(6)
     rows = []
     d = 512
-    for sq, sk in ((4096, 4096), (4100, 4100), (300, 70)):
+    for sq, sk in ((4096, 4096), (4100, 4100), (300, 70), (9216, 9216)):
         q = torch.randn((1, 1, sq, d), generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn((1, 1, sk, d), generator=gen, device="cuda").bfloat16()
                 for _ in range(2))
@@ -820,7 +914,7 @@ def k1_d512_bf16_phases(torch, K, F):
         err = rel_err(torch, out, K.flash_attention_plain(q, k, v, scale), label, BF16_TOL)
         if not torch.equal(out, K.flash_attention(q, k, v, scale)):
             raise RuntimeError(f"{label}: two launches differ")
-        if sq != 4096:
+        if sq not in (4096, 9216):
             got = K.flash_attention_residuals(q, k, v, scale)
             torch.cuda.synchronize()
             want = K.flash_attention_residuals_plain(q, k, v, scale)
@@ -830,7 +924,7 @@ def k1_d512_bf16_phases(torch, K, F):
             continue
         rows.append({
             "shape": [1, 1, sq, d], "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), 20),
+            "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), 20 if sq == 4096 else 5),
             "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 3),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale), 20),
@@ -927,19 +1021,22 @@ def main_path(torch, K, pipe):
                  "ms_per_step": secs16 / STEPS * 1e3, **drift16}}
 
 
-def inversion_path(torch, K, pipe, dtype=None):
-    """``invert`` at SD-1.4 full width and the reference defaults, on a
-    seeded 512² uint8 image, in f32 or, with ``dtype`` bf16, in bf16. The
-    launch counts follow from the layout and the inner iterations n the
-    early stop left: every forward without gradient runs K1 at the 5 self
-    sites of 4096 pixels; in an inner iteration's forward the site before
-    the first cross site does not see the embedding and runs K1 too, while
-    the 4 after it run K3, and the backward runs K4's two passes at each of
-    those 4; the VAE encode and the reconstruction's decode run K1 at d =
-    512. In bf16 all of those are the bf16 kernels but the decode's, which
-    runs in f32."""
+def inversion_path(torch, K, pipe, dtype=None, steps=STEPS, tag=None):
+    """``invert`` of ``pipe`` (SD-1.4 or SD-2.1 768-v) at full width, with
+    ``steps`` outer steps and the reference's other defaults, on a seeded
+    uint8 image of the config's size, in f32 or, with ``dtype`` bf16, in
+    bf16. The launch counts follow from the layout and the inner iterations
+    n the early stop left: every forward without gradient runs K1 at the
+    self sites of 2048 pixels or more (SD-1.4: 5 at 64²; 768-v: 5 at 96²
+    and 5 at 48²); in an inner iteration's forward the site before the
+    first cross site does not see the embedding and runs K1 too, while the
+    others (SD-1.4: 4; 768-v: 9) run K3, and the backward runs K4's two
+    passes at each of those; the VAE encode and the reconstruction's decode
+    run K1 at d = 512. In bf16 all of those are the bf16 kernels but the
+    decode's, which runs in f32. The counts are held by kernel and by head
+    dim (``kernels.head_dim_launch_counts``)."""
     bf16 = dtype is not None
-    tag = "inversion bf16" if bf16 else "inversion"
+    tag = tag or ("inversion bf16" if bf16 else "inversion")
     import numpy as np
 
     from p2p_tpu_torch.engine import inversion as inv
@@ -950,7 +1047,9 @@ def inversion_path(torch, K, pipe, dtype=None):
     big = [m for m in metas if not m.is_cross and m.pixels >= 2048]
     n_const = sum(1 for m in big if m.layer_idx < first_cross)
     n_grad = len(big) - n_const
+    (d,) = {m.channels // m.heads for m in big}
     cfg = pipe.config
+    dv = vae_head_dim(cfg)
     size = cfg.image_size
     image = np.random.default_rng(IMAGE_SEED).integers(0, 256, (size, size, 3),
                                                        dtype=np.uint8)
@@ -979,7 +1078,7 @@ def inversion_path(torch, K, pipe, dtype=None):
     K.reset_launch_counts()
     try:
         t0 = time.perf_counter()
-        art = inv.invert(pipe, image, PROMPTS[0], num_steps=STEPS,
+        art = inv.invert(pipe, image, PROMPTS[0], num_steps=steps,
                          num_inner_steps=INNER_STEPS, early_stop_epsilon=EARLY_STOP,
                          dtype=dtype or torch.float32, device="cuda")
         torch.cuda.synchronize()
@@ -992,21 +1091,28 @@ def inversion_path(torch, K, pipe, dtype=None):
     n = sum(art.inner_steps)
     # inversion, cond + advance forwards and inner forwards; then the VAE
     # encode and the reconstruction's decode
-    forwards = STEPS * len(big) + STEPS * 2 * len(big) + n * n_const
+    forwards = steps * len(big) + steps * 2 * len(big) + n * n_const
     want = dict.fromkeys(counts, 0)
+    dt = "bf16" if bf16 else "f32"
+    want_dims = {f"K1 {dt} d={d}": forwards, f"K3 {dt} d={d}": n * n_grad,
+                 f"K4 dkv {dt} d={d}": n * n_grad, f"K4 dq {dt} d={d}": n * n_grad}
     if bf16:
         want.update({"flash_attn_bf16": forwards + 1, "flash_attn": 1,
                      "flash_attn_residuals_bf16": n * n_grad,
                      "flash_attn_bwd_dq_bf16": n * n_grad,
                      "flash_attn_bwd_dkv_bf16": n * n_grad,
                      "window_sum_bf16": n * per_gradient})
+        want_dims.update({f"K1 bf16 d={dv}": 1, f"K1 f32 d={dv}": 1})
     else:
         want.update({"flash_attn": forwards + 2, "flash_attn_residuals": n * n_grad,
                      "flash_attn_bwd_dq": n * n_grad, "flash_attn_bwd_dkv": n * n_grad})
+        want_dims[f"K1 f32 d={dv}"] = 2
     want["flash_merge"] = 2 * vae_merges(torch, pipe, 1)
-    if counts != want:
-        raise RuntimeError(f"{tag} launch counts {counts}, expected {want}")
-    if art.uncond_embeddings.shape != (STEPS, 1, cfg.text.max_length,
+    dims = K.head_dim_launch_counts()
+    if counts != want or dims != want_dims:
+        raise RuntimeError(f"{tag} launch counts {counts} {dims}, expected {want} "
+                           f"{want_dims}")
+    if art.uncond_embeddings.shape != (steps, 1, cfg.text.max_length,
                                        cfg.text.hidden_dim):
         raise RuntimeError(f"embeddings {art.uncond_embeddings.shape}")
     if not (np.isfinite(art.uncond_embeddings).all() and np.isfinite(art.x_t).all()):
@@ -1018,8 +1124,8 @@ def inversion_path(torch, K, pipe, dtype=None):
              "s_null_optimize": seconds["null_optimize"], "inner_iterations": n,
              "ms_per_inner_iteration": seconds["null_optimize"] / n * 1e3,
              "inner_steps": art.inner_steps, "max_memory_allocated": peak,
-             "launches": counts, "launches_by_head_dim": K.head_dim_launch_counts(),
-             "window_sum_launches_per_gradient": per_gradient}
+             "launches": counts, "launches_by_head_dim": dims,
+             "grad_sites": n_grad, "window_sum_launches_per_gradient": per_gradient}
     print(f"{tag}: {total:.3f} s ({seconds['ddim_invert']:.3f} s DDIM "
           f"inversion, {seconds['null_optimize']:.3f} s optimization); {n} inner "
           f"iterations, {stats['ms_per_inner_iteration']:.2f} ms each (cond and "
@@ -1028,61 +1134,75 @@ def inversion_path(torch, K, pipe, dtype=None):
     return art, image, stats
 
 
-def replay_path(torch, K, pipe, art, image, f32_latents=None, tag=None):
+def replay_path(torch, K, pipe, art, image, dtype=None, f32_latents=None, tag=None,
+                f32_reference=False):
     """The replay edit of the inversion: Replace + LocalBlend + Reweight with
     the optimized embeddings, with and without the kernels, and the source
-    row's reconstruction against the raw ``""`` uncond. With the f32
-    materialized replay's latents ``f32_latents``, or a ``tag`` naming it,
-    the same in bf16 (the artifact's embeddings cast at each step): its
-    kernels are the bf16 K1 and K2, its VAE decode the f32 K1; given
-    ``f32_latents``, its drift is held as the main path's
-    (:func:`bf16_drift`). Returns the launch counts, the materialized run's
-    latents and the numbers."""
-    bf16 = f32_latents is not None or tag is not None
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    row's reconstruction against the raw ``""`` uncond; as many steps as the
+    artifact has, LocalBlend at a quarter of the latent side (16 at SD-1.4,
+    24 at SD-2.1 768-v). With ``dtype`` bf16, the same in bf16 (the
+    artifact's embeddings cast at each step): its kernels are the bf16 K1
+    and K2, its VAE decode the f32 K1; given the f32 materialized replay's
+    latents ``f32_latents``, or with ``f32_reference`` the f32 materialized
+    replay of this artifact run here, its drift is held as the main path's
+    (:func:`bf16_drift`). Launch counts are held by kernel and by head dim.
+    Returns the launch counts, the materialized run's latents and the
+    numbers."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     tag = tag or ("replay bf16" if bf16 else "replay")
     from p2p_tpu_torch import KernelConfig, make_controller, text2image
     from p2p_tpu_torch.kernels.dispatch import site_variant
     from p2p_tpu_torch.models import vae as vae_mod
     from p2p_tpu_torch.models.config import unet_layout
 
+    steps = art.num_steps
     prompts = [art.prompt, PROMPTS[1]]
-    ctrl = make_controller(prompts, True, 0.8, 0.4, pipe.tokenizer, STEPS,
-                           blend_words=BLEND_WORDS, equalizer_params=EQUALIZER)
+    ctrl = make_controller(prompts, True, 0.8, 0.4, pipe.tokenizer, steps,
+                           blend_words=BLEND_WORDS, equalizer_params=EQUALIZER,
+                           blend_resolution=pipe.config.latent_size // 4)
     metas = unet_layout(pipe.config.unet).metas
     variants = [site_variant(KernelConfig(), ctrl, m) for m in metas]
     n_k2 = variants.count("fused-edit")
-    n_k1 = sum(1 for v, m in zip(variants, metas) if v == "flash" and m.pixels >= 2048)
+    k1_sites = [m for v, m in zip(variants, metas) if v == "flash" and m.pixels >= 2048]
+    n_k1 = len(k1_sites)
+    (d,) = {m.channels // m.heads for m in k1_sites}
     x_t = torch.from_numpy(art.x_t).cuda()
     ups = torch.from_numpy(art.uncond_embeddings).cuda()
 
-    def run(kernels, uncond):
+    def run(kernels, uncond, dtype=dtype):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        img, _, _, lat = text2image(pipe, prompts, ctrl, num_steps=STEPS, latent=x_t,
+        img, _, _, lat = text2image(pipe, prompts, ctrl, num_steps=steps, latent=x_t,
                                     uncond_embeddings=uncond, kernels=kernels,
                                     device="cuda", return_latents=True, dtype=dtype)
         torch.cuda.synchronize()
         return img, lat, time.perf_counter() - t
 
+    if f32_reference:
+        f32_latents = run(None, ups, torch.float32)[1]
     K.reset_launch_counts()
     img, lat, secs = run(KernelConfig(), ups)
     counts = path_counts(K)
+    dims = K.head_dim_launch_counts()
     if bf16:
-        want = {**dict.fromkeys(counts, 0), "flash_attn_bf16": STEPS * n_k1,
-                "flash_attn": 1, "fused_edit_bf16": STEPS * n_k2,
-                "fused_edit_fold_bf16": STEPS * n_k2}
+        want = {**dict.fromkeys(counts, 0), "flash_attn_bf16": steps * n_k1,
+                "flash_attn": 1, "fused_edit_bf16": steps * n_k2,
+                "fused_edit_fold_bf16": steps * n_k2}
+        want_dims = {f"K1 bf16 d={d}": steps * n_k1, f"K1 f32 d={vae_head_dim(pipe.config)}": 1}
     else:
-        want = {**dict.fromkeys(counts, 0), "flash_attn": STEPS * n_k1 + 1,
-                "fused_edit": STEPS * n_k2, "fused_edit_fold": STEPS * n_k2}
+        want = {**dict.fromkeys(counts, 0), "flash_attn": steps * n_k1 + 1,
+                "fused_edit": steps * n_k2, "fused_edit_fold": steps * n_k2}
+        want_dims = {f"K1 f32 d={d}": steps * n_k1, f"K1 f32 d={vae_head_dim(pipe.config)}": 1}
     want["flash_merge"] = vae_merges(torch, pipe, 2)
-    if counts != want:
-        raise RuntimeError(f"{tag} launch counts {counts}, expected {want}")
+    if counts != want or dims != want_dims:
+        raise RuntimeError(f"{tag} launch counts {counts} {dims}, expected {want} "
+                           f"{want_dims}")
     size = pipe.config.image_size
     if img.shape != (2, size, size, 3) or not bool(torch.isfinite(lat).all()):
         raise RuntimeError(f"{tag} images {tuple(img.shape)} or non-finite latents")
     _, lat_ref, secs_ref = run(None, ups)
-    if f32_latents is not None:
+    if bf16 and f32_latents is not None:
         stats = bf16_drift(torch, tag, lat, lat_ref, f32_latents)
     elif bf16:
         stats = {"latent_drift": max_err(torch, lat, lat_ref),
@@ -1090,7 +1210,7 @@ def replay_path(torch, K, pipe, art, image, f32_latents=None, tag=None):
     else:
         stats = {"latent_drift": max_err(torch, lat, lat_ref)}
         if stats["latent_drift"] > DRIFT_TOL:
-            raise RuntimeError(f"replay latents drift {stats['latent_drift']} > {DRIFT_TOL}")
+            raise RuntimeError(f"{tag} latents drift {stats['latent_drift']} > {DRIFT_TOL}")
     _, lat_raw, _ = run(KernelConfig(), None)
     with torch.no_grad():
         target = vae_mod.encode(pipe.vae, pipe.config.vae, torch.from_numpy(
@@ -1110,10 +1230,10 @@ def replay_path(torch, K, pipe, art, image, f32_latents=None, tag=None):
                              "mse_optimized": err_opt, "mse_raw": err_raw, **stats}
 
 
-def sd21_path(torch, K):
+def sd21_path(torch, K, pipe):
     """The SD-2.1 768-v edit (``models/config.py:SD21``: 96² latent,
     v-prediction, the 23-layer gelu text tower, head_dim 64) at full width
-    and depth from random weights of seed 0: 2 prompts, DDIM 50 steps, CFG
+    and depth from ``pipe``'s random weights of seed 0: 2 prompts, DDIM 50 steps, CFG
     7.5, ``attention_replace(..., 0.8, 0.4)``, in f32 and in bf16, each with
     ``kernels=KernelConfig()`` and with ``kernels=None``. The launch counts
     follow from the layout: K1 at d = 64 at every untouched self site of at
@@ -1121,15 +1241,10 @@ def sd21_path(torch, K):
     step; one f32 K1 at d = 512 for the VAE decode (f32 in the bf16 run
     too). f32: final latents within ``DRIFT_TOL`` of the materialized run;
     bf16: the drift held as the SD-1.4 bf16 edit's (:func:`bf16_drift`)."""
-    from p2p_tpu_torch import KernelConfig, attention_replace, random_pipeline, text2image
+    from p2p_tpu_torch import KernelConfig, attention_replace, text2image
     from p2p_tpu_torch.kernels.dispatch import site_variant
     from p2p_tpu_torch.models.config import SD21, unet_layout
-    from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
-    t0 = time.perf_counter()
-    pipe = random_pipeline(SD21, HashWordTokenizer(), "cuda", seed=0)
-    torch.cuda.synchronize()
-    print(f"SD-2.1 768-v random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
     ctrl = attention_replace(PROMPTS, STEPS, 0.8, 0.4, pipe.tokenizer, store=False)
     metas = unet_layout(SD21.unet).metas
     variants = [site_variant(KernelConfig(), ctrl, m) for m in metas]
@@ -1196,6 +1311,44 @@ def sd21_path(torch, K):
     return counts, stats
 
 
+def compare_inversions(art, art16, inv, inv16, tag: str) -> None:
+    """Record in ``inv16`` and print the bf16 inversion beside the f32 one:
+    times, ms per inner iteration, peak memory, and the bf16-vs-f32 RMS
+    distances of x_T and of the embeddings."""
+    import numpy as np
+
+    inv16["bf16_vs_f32"] = dist = {f"{name}_rms": float(np.sqrt(np.mean(
+        (getattr(art16, name).astype(np.float64) - getattr(art, name)) ** 2)))
+        for name in ("x_t", "uncond_embeddings")}
+    print(f"{tag} bf16: {inv16['s_total']:.3f} s, "
+          f"{inv16['ms_per_inner_iteration']:.2f} ms per inner iteration, peak "
+          f"{inv16['max_memory_allocated'] / 2**30:.2f} GiB; f32 {inv['s_total']:.3f} s, "
+          f"{inv['ms_per_inner_iteration']:.2f} ms, "
+          f"{inv['max_memory_allocated'] / 2**30:.2f} GiB; bf16 vs f32 RMS: x_T "
+          f"{dist['x_t_rms']:.4g}, embeddings {dist['uncond_embeddings_rms']:.4g}")
+
+
+def sd21_inversion_path(torch, K, pipe):
+    """The SD-2.1 768-v null-text inversion at the reference defaults (50
+    outer steps, 10 inner, early stop 1e-5, CFG 7.5) on a seeded 768²
+    image, in f32 and in bf16 (:func:`inversion_path`: K3 and both K4
+    passes at d = 64 at the 9 gradient sites, 4 at 96² and 5 at 48², K1 at
+    d = 64 at the rest and at d = 512, (1, 1, 9216, 512), for the VAE; the
+    norms' window sums in bf16), and the replay of each artifact
+    (:func:`replay_path`, LocalBlend at 24): the f32 one in f32, the bf16 one
+    in bf16, held against its own f32 materialized replay. Returns the
+    numbers of each."""
+    art, image, inv = inversion_path(torch, K, pipe, tag="sd21 inversion")
+    _, _, replay = replay_path(torch, K, pipe, art, image, tag="sd21 replay")
+    art16, _, inv16 = inversion_path(torch, K, pipe, torch.bfloat16,
+                                     tag="sd21 inversion bf16")
+    compare_inversions(art, art16, inv, inv16, "sd21 inversion")
+    _, _, replay16 = replay_path(torch, K, pipe, art16, image, torch.bfloat16,
+                                 tag="sd21 replay bf16 of the bf16 artifact",
+                                 f32_reference=True)
+    return {"f32": inv, "bf16": inv16, "replay": replay, "replay_bf16": replay16}
+
+
 def kernel_entry(name, source, replaces, launches, rows, **extra):
     head = rows[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1208,7 +1361,6 @@ def kernel_entry(name, source, replaces, launches, rows, **extra):
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1256,7 +1408,8 @@ def main() -> int:
 
     k1_d64 = k1_d64_phases(torch, K, F, torch.float32)
     k1_d64_bf16 = k1_d64_phases(torch, K, F, torch.bfloat16)
-    k3_d64_bf16 = k3_d64_bf16_phase(torch, K, F)
+    k34_d64 = k34_d64_phases(torch, K, F, torch.float32)
+    k34_d64_bf16 = k34_d64_phases(torch, K, F, torch.bfloat16)
     k2_d64 = k2_phases(torch, K, F, cfgs=(SD21, SD21_BASE))
     k2_d64_bf16 = k2_phases(torch, K, F, torch.bfloat16, cfgs=(SD21, SD21_BASE))
     t0 = time.perf_counter()
@@ -1264,28 +1417,28 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"SD-1.4 random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
     counts, counts16, path = main_path(torch, K, pipe)
-    art, image, inversion = inversion_path(torch, K, pipe)
+    art, image, inversion = inversion_path(torch, K, pipe, steps=SD14_INVERSION_STEPS)
     replay_counts, replay_lat, replay = replay_path(torch, K, pipe, art, image)
-    replay16_counts, _, replay16 = replay_path(torch, K, pipe, art, image, replay_lat)
+    replay16_counts, _, replay16 = replay_path(torch, K, pipe, art, image, torch.bfloat16,
+                                               replay_lat)
     replay["bf16"] = replay16
-    art16, _, inversion16 = inversion_path(torch, K, pipe, torch.bfloat16)
+    art16, _, inversion16 = inversion_path(torch, K, pipe, torch.bfloat16,
+                                           steps=SD14_INVERSION_STEPS)
     inversion["bf16"] = inversion16
-    dist = {f"{name}_rms": float(np.sqrt(np.mean(
-        (getattr(art16, name).astype(np.float64) - getattr(art, name)) ** 2)))
-        for name in ("x_t", "uncond_embeddings")}
-    inversion16.update(bf16_vs_f32=dist)
-    print(f"inversion bf16: {inversion16['s_total']:.3f} s, "
-          f"{inversion16['ms_per_inner_iteration']:.2f} ms per inner iteration, peak "
-          f"{inversion16['max_memory_allocated'] / 2**30:.2f} GiB; f32 "
-          f"{inversion['s_total']:.3f} s, {inversion['ms_per_inner_iteration']:.2f} ms, "
-          f"{inversion['max_memory_allocated'] / 2**30:.2f} GiB; bf16 vs f32 RMS: "
-          f"x_T {dist['x_t_rms']:.4g}, embeddings {dist['uncond_embeddings_rms']:.4g}")
-    replay16i_counts, _, replay16i = replay_path(torch, K, pipe, art16, image,
+    compare_inversions(art, art16, inversion, inversion16, "inversion")
+    replay16i_counts, _, replay16i = replay_path(torch, K, pipe, art16, image, torch.bfloat16,
                                                  tag="replay bf16 of the bf16 artifact")
     replay["bf16_of_bf16_artifact"] = replay16i
     del pipe, art, art16
     torch.cuda.empty_cache()
-    sd21_counts, sd21 = sd21_path(torch, K)
+    t0 = time.perf_counter()
+    pipe = random_pipeline(SD21, HashWordTokenizer(), "cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"SD-2.1 768-v random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
+    sd21_counts, sd21 = sd21_path(torch, K, pipe)
+    sd21_inv = sd21_inversion_path(torch, K, pipe)
+    sd21["inversion"] = sd21_inv
+    dims_inv21, dims_inv21_16 = (sd21_inv[k]["launches_by_head_dim"] for k in ("f32", "bf16"))
     (c21, dims21), (c21_16, dims21_16) = (sd21_counts[torch.float32],
                                           sd21_counts[torch.bfloat16])
     inv_counts = inversion["launches"]
@@ -1297,7 +1450,9 @@ def main() -> int:
                                      "inversion": inv_counts["flash_merge"],
                                      "replay": replay_counts["flash_merge"]},
                      sd21_d512_launches={"f32": dims21["K1 f32 d=512"],
-                                         "bf16": dims21_16["K1 f32 d=512"]},
+                                         "bf16": dims21_16["K1 f32 d=512"],
+                                         "inversion": dims_inv21["K1 f32 d=512"],
+                                         "inversion_bf16": dims_inv21_16["K1 f32 d=512"]},
                      units="tensor cores, 3xTF32, at d = 40 (flash_d40_kernel) "
                            "and d = 512 (flash_d512_kernel)",
                      d40_occupancy={"warps": d40_warps, "blocks_per_sm": d40_blocks},
@@ -1387,15 +1542,30 @@ def main() -> int:
                      "p2p_tpu/models/nn.py:330", dims21_16["K1 bf16 d=64"], k1_d64_bf16,
                      units="tensor cores, bf16 (flash_d64_bf16_kernel, attn_bf16.cuh)",
                      note="launches from the sd21 bf16 edit; library_ms is SDPA in bf16"),
+        kernel_entry("flash_attn_residuals_d64", "p2p_tpu_torch/csrc/flash_attn.cu",
+                     "p2p_tpu/models/nn.py:343", dims_inv21["K3 f32 d=64"], k34_d64["K3"],
+                     units="tensor cores, 3xTF32 (flash_d64_kernel writing m and l)",
+                     note="K3 at d = 64, the SD-2.1 inversion's gradient sites (768-v "
+                          "and 512-base shapes); launches from the sd21 f32 inversion; "
+                          "library_ms is SDPA forward in f32"),
         kernel_entry("flash_attn_residuals_d64_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
-                     "p2p_tpu/models/nn.py:343",
-                     sum(d.get("K3 bf16 d=64", 0) for d in (
-                         dims21, dims21_16, inversion16["launches_by_head_dim"])),
-                     [k3_d64_bf16],
+                     "p2p_tpu/models/nn.py:343", dims_inv21_16["K3 bf16 d=64"],
+                     k34_d64_bf16["K3"],
                      units="tensor cores, bf16 (flash_d64_bf16_kernel writing m and l)",
-                     note="the SD-2.1 inversion's K3 (next slice), held here; launches "
-                          "from the sd21 edits and the bf16 inversion, none of which "
-                          "runs it; library_ms is SDPA forward in bf16"),
+                     note="launches from the sd21 bf16 inversion; library_ms is SDPA "
+                          "forward in bf16"),
+        *(kernel_entry(f"flash_attn_bwd_{p}_d64{sfx}", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
+                       "p2p_tpu/models/nn.py:308", dims[f"K4 {p} {dt} d=64"],
+                       rows[f"K4_{p}"],
+                       units=(f"tensor cores, {'bf16' if sfx else '3xTF32'} "
+                              f"(flash_bwd_{p}{sfx}_kernel<64>)"),
+                       note=f"K4's {p} pass at d = 64, the SD-2.1 inversion's gradient "
+                            f"sites (768-v and 512-base shapes); launches from the sd21 "
+                            f"{dt} inversion; library_ms is SDPA forward and backward "
+                            f"in {dt}")
+          for sfx, dt, dims, rows in (("", "f32", dims_inv21, k34_d64),
+                                      ("_bf16", "bf16", dims_inv21_16, k34_d64_bf16))
+          for p in ("dkv", "dq")),
         kernel_entry("fused_edit_d64", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", c21["fused_edit"], k2_d64,
                      fold_launches=c21["fused_edit_fold"],
@@ -1425,6 +1595,21 @@ def main() -> int:
     print(f"inversion bf16: K3 + K4 bf16 at {n_grad} sites take {k34_16_ms:.3f} ms of "
           f"the {inversion16['ms_per_inner_iteration']:.2f} ms inner iteration "
           f"({100 * k34_16_ms / inversion16['ms_per_inner_iteration']:.1f} %)")
+    # The same at SD-2.1 768-v: 4 gradient sites at 96² and 5 at 48².
+    from p2p_tpu_torch.models.config import unet_layout
+
+    metas = unet_layout(SD21.unet).metas
+    first_cross = min(m.layer_idx for m in metas if m.is_cross)
+    sites = [m.pixels for m in metas if not m.is_cross and m.pixels >= 2048
+             and m.layer_idx > first_cross]
+    for dt, rows, inv in (("f32", k34_d64, sd21_inv["f32"]), ("bf16", k34_d64_bf16,
+                                                             sd21_inv["bf16"])):
+        ms = sum(r["ms"] for k in ("K3", "K4_dq", "K4_dkv") for r in rows[k]
+                 for px in sites if r["shape"][2] == px)
+        inv["k3_k4_ms_per_inner_iteration"] = ms
+        print(f"sd21 inversion {dt}: K3 + K4 at {len(sites)} sites take {ms:.3f} ms of "
+              f"the {inv['ms_per_inner_iteration']:.2f} ms inner iteration "
+              f"({100 * ms / inv['ms_per_inner_iteration']:.1f} %)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

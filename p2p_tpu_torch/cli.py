@@ -10,13 +10,20 @@
     python -m p2p_tpu_torch replay --preset sd14 --artifact out/inversion.npz \\
         --mode replace --target "a dog riding a bicycle" --blend-words cat,dog \\
         --equalizer dog=2 --kernels --out-dir out/
+    python -m p2p_tpu_torch invert --preset sd21 ...  (768² image, v-prediction)
+    python -m p2p_tpu_torch replay --preset sd21 ... --blend-resolution 24
 
 Weights are random (from fixed seeds) and prompts go through the hash-word
 tokenizer: loading a checkpoint needs the CLIP BPE tokenizer, which is not
 ported yet. Runs on CUDA unless ``--device cpu`` is given. The JAX CLI's
 flags this slice does not support are rejected with a message, never
-ignored; so are ``invert`` and ``replay`` on the SD-2.1 presets, whose
-inversion needs K4 at head dim 64.
+ignored; so are ``invert`` and ``replay`` on a config whose inversion would
+need K4 at a head dim it has no kernel for (every preset has them).
+
+LocalBlend reads the cross maps stored at ``--blend-resolution``, a
+quarter of the latent side: the default 16 at SD-1.4 and 512-base (64²
+latent), 24 at SD-2.1 768-v (96² latent), where maps are stored at 48²,
+24² and 12² and the default 16 raises.
 """
 
 from __future__ import annotations
@@ -239,7 +246,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="comma-separated words for LocalBlend masking")
         sp.add_argument("--equalizer", default=None,
                         help="word=scale[,word=scale...] reweighting")
-        sp.add_argument("--blend-resolution", type=int, default=16)
+        sp.add_argument("--blend-resolution", type=int, default=16,
+                        help="side of the cross maps LocalBlend reads: 16 at "
+                             "512² (sd14, sd21base), 24 at 768² (sd21)")
         sp.add_argument("--kernels", action="store_true",
                         help="run the edited sites through the fused-edit kernel")
         sp.add_argument("--attn-maps", default=None, help=argparse.SUPPRESS)

@@ -5,8 +5,12 @@
 // `flash_attention_tpu` (p2p_tpu/models/nn.py:308-340): the Pallas kernels
 // `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`
 // (jax/experimental/pallas/ops/tpu/flash_attention.py, rule at :254-315).
-// On the null-text inversion path they run at the U-Net's 64x64-pixel self
-// sites, (1, 8, 4096, 40), once each per site per inner iteration.
+// On the null-text inversion path they run once each per site per inner
+// iteration at the U-Net's self sites of 2048 pixels or more: SD-1.4's
+// 64x64-pixel sites, (1, 8, 4096, 40), and SD-2.1's at head dim 64, (1, 5,
+// 9216, 64) and (1, 10, 2304, 64) at 768-v and (1, 5, 4096, 64) at 512-base.
+// The head dim is a template parameter, instantiated at 40 and 64; each C
+// entry dispatches on it.
 //
 // Inputs: q, do (bh, sq, d); k, v (bh, sk, d); the forward's residuals m and
 // l (bh, sq) from K3; and di = sum_c o * do (bh, sq), computed by the wrapper
@@ -35,15 +39,15 @@
 // Every tile in shared memory feeds B operands in all four warps, so the
 // block splits it into its TF32 parts once, in place (split_tile), rather
 // than each warp at every read: Q and dO per query tile and K and V once in
-// dkv, K and V per key tile and Q and dO once in dq (113 KB of shared
-// memory; two blocks an SM).
+// dkv, K and V per key tile and Q and dO once in dq (ten tiles: 113 KB of
+// shared memory at d = 40, two blocks an SM; 176 KB at d = 64, one).
 // The tensor cores' accumulation rounds toward zero, which over a whole
 // 4096-long sum biased the gradients by some 2e-5 of their largest value;
 // each tile's product is therefore summed in its own accumulator and added
 // to the running dk, dv or dq in f32 (2.5e-6). p = exp2(s * scale *
 // log2(e) - lse * log2(e)) takes one MUFU.EX2 per element.
-// Tiles are 64 x 40 in shared memory with row stride 44, which every
-// fragment pattern reads without bank conflicts.
+// Tiles are 64 x D in shared memory with row stride D + 4 (44, 68), which
+// every fragment pattern reads without bank conflicts.
 // Ragged edges: rows past sq or sk are loaded as zeros; a key past sk gets
 // p = 0, and a query row past sq gets lse = +inf (p = 0) and di = 0, so no
 // -inf - -inf is ever formed and nothing past the edge is stored.
@@ -56,21 +60,31 @@ using namespace p2p;
 
 namespace {
 
-constexpr int D = 40;
 constexpr int NT = 128;           // four warps
 constexpr int BR = 64;            // rows of a tile (keys or queries)
-constexpr int LD = D + 4;         // ld % 8 == 4: conflict-free fragments
-constexpr int TILE = BR * LD;
-constexpr int NKS = D / 8;        // k-steps and n-tiles over the head dim
 constexpr int NRT = BR / 8;       // n-tiles and k-steps over a 64-row tile
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The f32 passes' geometry at head dim D.
+template <int D>
+struct F32 {
+  static constexpr int LD = D + 4;      // ld % 8 == 4: conflict-free fragments
+  static constexpr int TILE = BR * LD;
+  static constexpr int NKS = D / 8;     // k-steps and n-tiles over the head dim
+  // n-tiles of out += C B whose B fragments are in registers at once: all
+  // five at d = 40, four of eight at d = 64 (registers).
+  static constexpr int GCB = NKS % 4 == 0 ? 4 : NKS;
+  static constexpr size_t DKV_SMEM = sizeof(float) * (10 * TILE + 7 * BR);
+  static constexpr size_t DQ_SMEM = sizeof(float) * (10 * TILE + 3 * BR);
+};
 
 // acc[n] = A_w X^T: the warp's 16 rows of A against the 64 rows of X, over
 // the head dim, both split; G n-tiles at a time (G B fragments live in
 // registers).
-template <int G>
+template <int D, int G>
 __device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const Split& A,
                                            const Split& X) {
+  constexpr int LD = F32<D>::LD, NKS = F32<D>::NKS;
 #pragma unroll
   for (int n = 0; n < NRT; ++n)
 #pragma unroll
@@ -96,9 +110,12 @@ __device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const Split& A,
 // k permuted) and the split 64 x D tile B. The tile's sum is taken in its own
 // accumulator and added to out in f32: the tensor cores' accumulation
 // rounds toward zero, and over a chain as long as the whole sequence that
-// bias grows to some 2e-5 of the result.
-__device__ __forceinline__ void product_cb(float (&out)[NKS][4],
+// bias grows to some 2e-5 of the result. Each element of the tile sums
+// the same terms in the same order whatever the grouping of n-tiles.
+template <int D>
+__device__ __forceinline__ void product_cb(float (&out)[F32<D>::NKS][4],
                                            const float (&c)[NRT][4], const Split& B) {
+  constexpr int LD = F32<D>::LD, NKS = F32<D>::NKS, G = F32<D>::GCB;
   float tile[NKS][4];
 #pragma unroll
   for (int n = 0; n < NKS; ++n)
@@ -107,14 +124,18 @@ __device__ __forceinline__ void product_cb(float (&out)[NKS][4],
 #pragma unroll
   for (int kt = 0; kt < NRT; ++kt) {
     FragA a;
-    FragB b[NKS];
     a_from_c(a, c[kt]);
 #pragma unroll
-    for (int n = 0; n < NKS; ++n) load_b_perm(b[n], B.at(kt * 8 * LD + n * 8), LD);
-    mma_3xtf32([&](int ta, int tb) {
+    for (int n0 = 0; n0 < NKS; n0 += G) {
+      FragB b[G];
 #pragma unroll
-      for (int n = 0; n < NKS; ++n) mma_tf32(tile[n], a.x[ta], b[n].x[tb]);
-    });
+      for (int n = 0; n < G; ++n)
+        load_b_perm(b[n], B.at(kt * 8 * LD + (n0 + n) * 8), LD);
+      mma_3xtf32([&](int ta, int tb) {
+#pragma unroll
+        for (int n = 0; n < G; ++n) mma_tf32(tile[n0 + n], a.x[ta], b[n].x[tb]);
+      });
+    }
   }
 #pragma unroll
   for (int n = 0; n < NKS; ++n)
@@ -124,9 +145,11 @@ __device__ __forceinline__ void product_cb(float (&out)[NKS][4],
 
 // Rows row0 + [0, 16) of out = scale * acc; rows at or past rows_total
 // skipped.
+template <int D>
 __device__ __forceinline__ void store_rows(float* __restrict__ out,
-                                           const float (&acc)[NKS][4],
+                                           const float (&acc)[F32<D>::NKS][4],
                                            float scale, int row0, int rows_total) {
+  constexpr int NKS = F32<D>::NKS;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -160,12 +183,14 @@ __device__ __forceinline__ float lse2_of(float m, float l, bool ok) {
   return ok ? m * LOG2E + log2f(l) : INFINITY;
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ m, const float* __restrict__ l,
                      const float* __restrict__ di, float* __restrict__ dk,
                      float* __restrict__ dv, int sq, int sk, float scale) {
+  constexpr int LD = F32<D>::LD, TILE = F32<D>::TILE, NKS = F32<D>::NKS;
   extern __shared__ float smem[];
   float* Ks = smem;                 // hi parts in place, lo parts beside
   float* Kl = Ks + TILE;
@@ -236,7 +261,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // p^T = exp(scale * k q^T - lse): keys are rows, queries columns.
     float p[NRT][4], dp[NRT][4];
-    product_nt<4>(p, Split{Ks, Kl}.at(w0 * LD), Q);
+    product_nt<D, 4>(p, Split{Ks, Kl}.at(w0 * LD), Q);
 #pragma unroll
     for (int n = 0; n < NRT; ++n) {
       const int c = n * 8 + 2 * t;
@@ -246,9 +271,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       p[n][2] = exp2f(p[n][2] * scale2 - lse0);
       p[n][3] = exp2f(p[n][3] * scale2 - lse1);
     }
-    product_cb(dV, p, dO);
+    product_cb<D>(dV, p, dO);
     // ds^T = p^T * (v do^T - di).
-    product_nt<4>(dp, Split{Vs, Vl}.at(w0 * LD), dO);
+    product_nt<D, 4>(dp, Split{Vs, Vl}.at(w0 * LD), dO);
 #pragma unroll
     for (int n = 0; n < NRT; ++n) {
       const int c = n * 8 + 2 * t;
@@ -258,18 +283,20 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dp[n][2] = p[n][2] * (dp[n][2] - di0);
       dp[n][3] = p[n][3] * (dp[n][3] - di1);
     }
-    product_cb(dK, dp, Q);
+    product_cb<D>(dK, dp, Q);
   }
-  store_rows(dk + bh * sk * D, dK, scale, k0 + w0, sk);
-  store_rows(dv + bh * sk * D, dV, 1.f, k0 + w0, sk);
+  store_rows<D>(dk + bh * sk * D, dK, scale, k0 + w0, sk);
+  store_rows<D>(dv + bh * sk * D, dV, 1.f, k0 + w0, sk);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ m, const float* __restrict__ l,
                     const float* __restrict__ di, float* __restrict__ dq,
                     int sq, int sk, float scale) {
+  constexpr int LD = F32<D>::LD, TILE = F32<D>::TILE, NKS = F32<D>::NKS;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + TILE;
@@ -336,7 +363,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // p = exp(scale * q k^T - lse), 0 for keys past sk.
     float p[NRT][4], dp[NRT][4];
-    product_nt<8>(p, Split{Qs + w0 * LD, Ql + w0 * LD}, K);
+    product_nt<D, 8>(p, Split{Qs + w0 * LD, Ql + w0 * LD}, K);
 #pragma unroll
     for (int n = 0; n < NRT; ++n) {
       const int c = key0 + n * 8 + 2 * t;
@@ -345,18 +372,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         p[n][e] = c + (e & 1) < sk ? exp2f(p[n][e] * scale2 - lse2[e >> 1]) : 0.f;
     }
     // ds = p * (do v^T - di).
-    product_nt<8>(dp, Split{dOs + w0 * LD, dOl + w0 * LD}, Split{Vs + st * TILE, Vl});
+    product_nt<D, 8>(dp, Split{dOs + w0 * LD, dOl + w0 * LD}, Split{Vs + st * TILE, Vl});
 #pragma unroll
     for (int n = 0; n < NRT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[n][e] = p[n][e] * (dp[n][e] - dis[e >> 1]);
-    product_cb(dQ, dp, K);
+    product_cb<D>(dQ, dp, K);
   }
-  store_rows(dq + bh * sq * D, dQ, scale, q0 + w0, sq);
+  store_rows<D>(dq + bh * sq * D, dQ, scale, q0 + w0, sq);
 }
-
-constexpr size_t DKV_SMEM = sizeof(float) * (10 * TILE + 7 * BR);
-constexpr size_t DQ_SMEM = sizeof(float) * (10 * TILE + 3 * BR);
 
 // ----------------------------------------------------------------- bf16
 //
@@ -369,47 +393,66 @@ constexpr size_t DQ_SMEM = sizeof(float) * (10 * TILE + 3 * BR);
 // (dp - di) * p * scale in f32 and rounded to bf16 *after* the scale for
 // dk += ds^T q and dq += ds k (40^-1/2 is not a power of two, so the
 // f32 kernels' scale at the end would round elsewhere); the f32 sums
-// rounded to bf16 once, when stored. Tiles are 64 x 40 bf16 with row
-// stride 40, five 16-byte chunks (odd), so ldmatrix reads them without
-// bank conflicts. The warp's own 16 rows of the tile that stays (K and V
-// in dkv, Q and dO in dq) are A fragments held in registers for the whole
-// walk; the streamed tiles give B fragments, and the C fragments of s^T
-// and ds^T (s and ds) are packed into the A fragments of the next product
-// without leaving registers. Each tile's product is summed in its own
-// accumulator and added in f32. About 32 KB of shared memory a block.
-// Bound at (1, 8, 4096, 40), the bf16 inversion's gradient sites: the
-// products at 989 TFLOP/s, dkv 0.043 ms (four), dq 0.033 ms (three).
+// rounded to bf16 once, when stored. Tiles are 64 x D bf16 with rows of an
+// odd number of 16-byte chunks, so ldmatrix reads them without bank
+// conflicts: five at d = 40 (row stride 40), nine at d = 64 (64 padded to
+// 72). The warp's own 16 rows of the tile that stays (K and V in dkv, Q and
+// dO in dq) are A fragments in registers, held for the whole walk at
+// d = 40 and in dq; at d = 64 dkv loads them again for each query tile,
+// since held beside dK, dV, p^T and ds^T they would take an estimated ~240
+// registers.
+// The streamed tiles give B fragments, and the C fragments of s^T and ds^T
+// (s and ds) are packed into the A fragments of the next product without
+// leaving registers. Each tile's product is summed in its own accumulator
+// and added in f32. About 32 KB of shared memory a block at d = 40, 56 KB
+// at d = 64. Bound (the products at 989 TFLOP/s; dkv four, dq three): at
+// (1, 8, 4096, 40), SD-1.4's gradient sites, dkv 0.043 ms, dq 0.033 ms; at
+// (1, 5, 9216, 64), SD-2.1 768-v's largest, dkv 0.220 ms, dq 0.165 ms.
 namespace b16 {
-constexpr int LDB = D;             // 40 bf16: five 16-byte chunks a row
-constexpr int TILEB = BR * LDB;
-constexpr int NO = D / 8;         // n-tiles of a product over the head dim
+template <int D>
+struct Geo {
+  static constexpr int LDB = (D / 8) % 2 ? D : D + 8;  // odd 16-byte chunks a row
+  static constexpr int TILEB = BR * LDB;
+  static constexpr int NO = D / 8;       // n-tiles of a product over the head dim
+  static constexpr int KS = D / 16;      // k16 steps over the head dim
+  static constexpr bool TAIL = D % 16 == 8;  // and a last k8 step
+  static constexpr bool HOLD_DKV = D <= 40;  // dkv holds its rows' A fragments
+  static constexpr size_t DKV_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 7 * BR;
+  static constexpr size_t DQ_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 3 * BR;
+};
 
-// The A fragments of a warp's 16 rows of a tile: the head dim's two k16
-// steps and its last k8 step.
+// The A fragments of a warp's 16 rows of a tile: the head dim's k16 steps
+// and, where it has one, its last k8 step.
+template <int D>
 struct RowsA {
-  uint32_t a[2][4];
+  uint32_t a[Geo<D>::KS][4];
   uint32_t t[2];
 };
 
-__device__ __forceinline__ void load_rows_a(RowsA& f, const bf16* rows) {
+template <int D>
+__device__ __forceinline__ void load_rows_a(RowsA<D>& f, const bf16* rows) {
+  using G = Geo<D>;
   const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
-  const bf16* p = rows + (lr + 8 * (lm & 1)) * LDB;
-  ldsm_x4(f.a[0], p + 8 * (lm >> 1));
-  ldsm_x4(f.a[1], p + 16 + 8 * (lm >> 1));
-  ldsm_x2(f.t, p + 32);
+  const bf16* p = rows + (lr + 8 * (lm & 1)) * G::LDB;
+#pragma unroll
+  for (int ks = 0; ks < G::KS; ++ks) ldsm_x4(f.a[ks], p + 16 * ks + 8 * (lm >> 1));
+  if constexpr (G::TAIL) ldsm_x2(f.t, p + 16 * G::KS);
 }
 
 // acc = A X^T over the head dim: the warp's 16 rows of A against the 64
 // rows of the tile X, in a fresh accumulator.
-__device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const RowsA& A,
+template <int D>
+__device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const RowsA<D>& A,
                                            const bf16* X) {
+  using G = Geo<D>;
+  constexpr int LDB = G::LDB;
   const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
 #pragma unroll
   for (int n = 0; n < NRT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
+  for (int ks = 0; ks < G::KS; ++ks)
 #pragma unroll
     for (int n = 0; n < NRT; n += 2) {
       uint32_t b[4];  // (rows 8n, d lo), (8n, hi), (8n + 8, lo), (8n + 8, hi)
@@ -417,12 +460,14 @@ __device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const RowsA& A,
       mma_bf16_k16(acc[n], A.a[ks], b);
       mma_bf16_k16(acc[n + 1], A.a[ks], b + 2);
     }
+  if constexpr (G::TAIL) {
 #pragma unroll
-  for (int n = 0; n < NRT; n += 2) {
-    uint32_t b[2];  // rows 8n, rows 8n + 8, the last 8 dims
-    ldsm_x2(b, X + (8 * (n + (lm & 1)) + lr) * LDB + 32);
-    mma_bf16_k8(acc[n], A.t, b[0]);
-    mma_bf16_k8(acc[n + 1], A.t, b[1]);
+    for (int n = 0; n < NRT; n += 2) {
+      uint32_t b[2];  // rows 8n, rows 8n + 8, the last 8 dims
+      ldsm_x2(b, X + (8 * (n + (lm & 1)) + lr) * LDB + 16 * G::KS);
+      mma_bf16_k8(acc[n], A.t, b[0]);
+      mma_bf16_k8(acc[n + 1], A.t, b[1]);
+    }
   }
 }
 
@@ -430,8 +475,10 @@ __device__ __forceinline__ void product_nt(float (&acc)[NRT][4], const RowsA& A,
 // packed as the A fragments of four k16 steps (k = the 64 rows of Y),
 // against the tile Y; the tile's product in its own accumulator, added to
 // out in f32.
-__device__ __forceinline__ void product_cy(float (&out)[NO][4], const float (&c)[NRT][4],
-                                           const bf16* Y) {
+template <int D>
+__device__ __forceinline__ void product_cy(float (&out)[Geo<D>::NO][4],
+                                           const float (&c)[NRT][4], const bf16* Y) {
+  constexpr int LDB = Geo<D>::LDB, NO = Geo<D>::NO;
   const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
   float tile[NO][4];
 #pragma unroll
@@ -452,9 +499,11 @@ __device__ __forceinline__ void product_cy(float (&out)[NO][4], const float (&c)
       mma_bf16_k16(tile[n], a, b);
       mma_bf16_k16(tile[n + 1], a, b + 2);
     }
-    uint32_t b[2];
-    ldsm_x2_t(b, Yj + 8 * (NO - 1));
-    mma_bf16_k16(tile[NO - 1], a, b);
+    if constexpr (NO % 2) {
+      uint32_t b[2];
+      ldsm_x2_t(b, Yj + 8 * (NO - 1));
+      mma_bf16_k16(tile[NO - 1], a, b);
+    }
   }
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -463,8 +512,11 @@ __device__ __forceinline__ void product_cy(float (&out)[NO][4], const float (&c)
 }
 
 // Rows row0 + [0, 16) of out = bf16(acc); rows at or past rows_total skipped.
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[NO][4],
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out,
+                                           const float (&acc)[Geo<D>::NO][4],
                                            int row0, int rows_total) {
+  constexpr int NO = Geo<D>::NO;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -476,12 +528,10 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (
           pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
-
-constexpr size_t DKV_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 7 * BR;
-constexpr size_t DQ_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 3 * BR;
 }  // namespace b16
 
 // grid (key tiles of 64, bh), 128 threads: warp w owns keys k0 + 16 w + [0, 16).
+template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -489,6 +539,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const float* __restrict__ di, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int sq, int sk, float scale) {
   using namespace b16;
+  using G = Geo<D>;
+  constexpr int LDB = G::LDB, TILEB = G::TILEB, NO = G::NO;
   extern __shared__ __align__(16) unsigned char smem_b16[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_b16);
   bf16* Vs = Ks + TILEB;
@@ -518,9 +570,11 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  RowsA ka, va;
-  load_rows_a(ka, Ks + w0 * LDB);
-  load_rows_a(va, Vs + w0 * LDB);
+  RowsA<D> ka, va;
+  if constexpr (G::HOLD_DKV) {
+    load_rows_a(ka, Ks + w0 * LDB);
+    load_rows_a(va, Vs + w0 * LDB);
+  }
 
   float dK[NO][4], dV[NO][4];
 #pragma unroll
@@ -552,6 +606,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // p^T = exp(scale * k q^T - lse): keys are rows, queries columns.
     float p[NRT][4], ds[NRT][4];
+    if constexpr (!G::HOLD_DKV) load_rows_a(ka, Ks + w0 * LDB);
     product_nt(p, ka, Qt);
 #pragma unroll
     for (int n = 0; n < NRT; ++n) {
@@ -559,8 +614,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[n][e] = exp2f(p[n][e] * scale2 - lse_s[c + (e & 1)]);
     }
-    product_cy(dV, p, dOt);
+    product_cy<D>(dV, p, dOt);
     // ds^T = (v do^T - di) * p^T * scale, rounded to bf16 by product_cy.
+    if constexpr (!G::HOLD_DKV) load_rows_a(va, Vs + w0 * LDB);
     product_nt(ds, va, dOt);
 #pragma unroll
     for (int n = 0; n < NRT; ++n) {
@@ -568,13 +624,14 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[n][e] = (ds[n][e] - dit[c + (e & 1)]) * p[n][e] * scale;
     }
-    product_cy(dK, ds, Qt);
+    product_cy<D>(dK, ds, Qt);
   }
-  store_rows(dk + bh * sk * D, dK, k0 + w0, sk);
-  store_rows(dv + bh * sk * D, dV, k0 + w0, sk);
+  store_rows<D>(dk + bh * sk * D, dK, k0 + w0, sk);
+  store_rows<D>(dv + bh * sk * D, dV, k0 + w0, sk);
 }
 
 // grid (query tiles of 64, bh), 128 threads: warp w owns queries q0 + 16 w + [0, 16).
+template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -582,6 +639,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const float* __restrict__ di, bf16* __restrict__ dq,
                          int sq, int sk, float scale) {
   using namespace b16;
+  constexpr int LDB = Geo<D>::LDB, TILEB = Geo<D>::TILEB, NO = Geo<D>::NO;
   extern __shared__ __align__(16) unsigned char smem_b16[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_b16);
   bf16* dOs = Qs + TILEB;
@@ -608,7 +666,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  RowsA qa, doa;
+  RowsA<D> qa, doa;
   load_rows_a(qa, Qs + w0 * LDB);
   load_rows_a(doa, dOs + w0 * LDB);
   // The statistics of the thread's two rows, w0 + g and w0 + g + 8.
@@ -656,9 +714,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < NRT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[n][e] = (ds[n][e] - dis[e >> 1]) * p[n][e] * scale;
-    product_cy(dQ, ds, Kt);
+    product_cy<D>(dQ, ds, Kt);
   }
-  store_rows(dq + bh * sq * D, dQ, q0 + w0, sq);
+  store_rows<D>(dq + bh * sq * D, dQ, q0 + w0, sq);
 }
 
 int launch(const void* kern, size_t smem, dim3 grid, void** args,
@@ -671,37 +729,54 @@ int launch(const void* kern, size_t smem, dim3 grid, void** args,
   return cudaGetLastError();
 }
 
+// Launch the dk/dv pass (dkv) or the dq pass on f32 or bf16 operands at
+// head dim D, over `tiles` row tiles of each of bh heads.
+template <int D>
+int launch_pass(bool dkv, bool bf16_ops, int tiles, int bh, void** args, void* stream) {
+  const void* kern =
+      bf16_ops ? (dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_bf16_kernel<D>)
+                      : reinterpret_cast<const void*>(flash_bwd_dq_bf16_kernel<D>))
+               : (dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_kernel<D>)
+                      : reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>));
+  const size_t smem = bf16_ops ? (dkv ? b16::Geo<D>::DKV_SMEM : b16::Geo<D>::DQ_SMEM)
+                               : (dkv ? F32<D>::DKV_SMEM : F32<D>::DQ_SMEM);
+  return launch(kern, smem, dim3(tiles, bh), args, static_cast<cudaStream_t>(stream));
+}
+
+// launch_pass at head dim d; cudaErrorInvalidValue for a head dim without
+// kernels.
+int dispatch(bool dkv, bool bf16_ops, int d, int tiles, int bh, void** args,
+             void* stream) {
+  if (d == 40) return launch_pass<40>(dkv, bf16_ops, tiles, bh, args, stream);
+  if (d == 64) return launch_pass<64>(dkv, bf16_ops, tiles, bh, args, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, dout: (bh, sq, d); k, v: (bh, sk, d); m, l, di: (bh, sq); dk, dv:
-// (bh, sk, d). All contiguous f32; d = 40. Returns a cudaError_t (0 on
-// success).
+// (bh, sk, d). All contiguous f32; d = 40 or 64. Returns a cudaError_t (0
+// on success).
 extern "C" int p2p_flash_attn_bwd_dkv(const float* q, const float* k,
                                       const float* v, const float* dout,
                                       const float* m, const float* l,
                                       const float* di, float* dk, float* dv,
                                       int bh, int sq, int sk, int d,
                                       float scale, void* stream) {
-  if (d != D) return cudaErrorInvalidValue;
   void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dk, &dv, &sq, &sk, &scale};
-  return launch(reinterpret_cast<const void*>(flash_bwd_dkv_kernel), DKV_SMEM,
-                dim3((sk + BR - 1) / BR, bh), args,
-                static_cast<cudaStream_t>(stream));
+  return dispatch(true, false, d, (sk + BR - 1) / BR, bh, args, stream);
 }
 
 // q, dout, dq: (bh, sq, d); k, v: (bh, sk, d); m, l, di: (bh, sq). All
-// contiguous f32; d = 40. Returns a cudaError_t (0 on success).
+// contiguous f32; d = 40 or 64. Returns a cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_bwd_dq(const float* q, const float* k,
                                      const float* v, const float* dout,
                                      const float* m, const float* l,
                                      const float* di, float* dq, int bh,
                                      int sq, int sk, int d, float scale,
                                      void* stream) {
-  if (d != D) return cudaErrorInvalidValue;
   void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dq, &sq, &sk, &scale};
-  return launch(reinterpret_cast<const void*>(flash_bwd_dq_kernel), DQ_SMEM,
-                dim3((sq + BR - 1) / BR, bh), args,
-                static_cast<cudaStream_t>(stream));
+  return dispatch(false, false, d, (sq + BR - 1) / BR, bh, args, stream);
 }
 
 // The bf16 passes: q, k, v, dout and the outputs bf16 with the shapes
@@ -711,10 +786,8 @@ extern "C" int p2p_flash_attn_bwd_dkv_bf16(const void* q, const void* k, const v
                                            const float* l, const float* di, void* dk,
                                            void* dv, int bh, int sq, int sk, int d,
                                            float scale, void* stream) {
-  if (d != D) return cudaErrorInvalidValue;
   void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dk, &dv, &sq, &sk, &scale};
-  return launch(reinterpret_cast<const void*>(flash_bwd_dkv_bf16_kernel), b16::DKV_SMEM,
-                dim3((sk + BR - 1) / BR, bh), args, static_cast<cudaStream_t>(stream));
+  return dispatch(true, true, d, (sk + BR - 1) / BR, bh, args, stream);
 }
 
 extern "C" int p2p_flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* v,
@@ -722,10 +795,8 @@ extern "C" int p2p_flash_attn_bwd_dq_bf16(const void* q, const void* k, const vo
                                           const float* l, const float* di, void* dq,
                                           int bh, int sq, int sk, int d, float scale,
                                           void* stream) {
-  if (d != D) return cudaErrorInvalidValue;
   void* args[] = {&q, &k, &v, &dout, &m, &l, &di, &dq, &sq, &sk, &scale};
-  return launch(reinterpret_cast<const void*>(flash_bwd_dq_bf16_kernel), b16::DQ_SMEM,
-                dim3((sq + BR - 1) / BR, bh), args, static_cast<cudaStream_t>(stream));
+  return dispatch(false, true, d, (sq + BR - 1) / BR, bh, args, stream);
 }
 
 // The message of a CUDA error code, for the Python wrappers.

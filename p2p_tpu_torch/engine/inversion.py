@@ -12,10 +12,14 @@ The PyTorch counterpart of ``p2p_tpu/engine/inversion.py``:
    falls below ``ε + i·2e-5``; the latent then advances one DDIM step under
    full CFG with the optimized embedding.
 
-The gradient runs through the U-Net by autograd; at the 64²-pixel self
-sites that is the flash forward with residuals (K3) and the flash backward
-(K4), through ``models.nn.fused_attention``. Only the embedding takes
-gradients: no weight requires grad.
+The gradient runs through the U-Net by autograd; at the self sites of
+``FLASH_MIN_SEQ`` pixels or more (SD-1.4's 64² sites at head dim 40,
+SD-2.1's 96² and 48² or 64² sites at head dim 64) that is the flash
+forward with residuals (K3) and the flash backward (K4), through
+``models.nn.fused_attention``. Only the embedding takes gradients: no
+weight requires grad. SD-2.1 768-v predicts v: ``ddim_invert`` and the
+inner loss convert the U-Net's output to ε (``to_epsilon``) as the JAX
+package does.
 
 ``invert(dtype=torch.bfloat16)`` runs it as the JAX package's production
 inversion does: the image, the VAE encode (K1 at d = 512 in bf16), the text
@@ -112,7 +116,8 @@ def require_k4(config: PipelineConfig, what: str) -> None:
     """Raise ``NotImplementedError`` naming ``what`` when the null-text
     gradient of ``config``'s U-Net needs K4, the flash attention backward,
     at a head dim it has no kernel for: the head dims of the self sites at
-    ``FLASH_MIN_SEQ`` positions or more."""
+    ``FLASH_MIN_SEQ`` positions or more. Every preset passes (SD-1.4 at
+    head dim 40, SD-2.1 at 64)."""
     dims = {ch // heads for _, cross, res, heads, _, ch in unet_attn_specs(config.unet)
             if not cross and res * res >= FLASH_MIN_SEQ}
     missing = sorted(dims - set(K4_HEAD_DIMS))

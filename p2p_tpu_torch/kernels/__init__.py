@@ -17,14 +17,14 @@
 
 Each wrapper runs its plain PyTorch version on CPU tensors, launches its
 kernel on CUDA tensors (built on first use by :mod:`.build`) and counts its
-launches in ``<wrapper>.launches`` (K1's and K3's by dtype and head dim,
-in ``<wrapper>.by_head_dim``, :func:`head_dim_launch_counts`); K1's and
+launches in ``<wrapper>.launches`` (K1's, K3's and K4's passes' by dtype
+and head dim, in ``<wrapper>.by_head_dim``, :func:`head_dim_launch_counts`); K1's and
 K3's wrappers also count the merge kernel their d = 512 calls launch when
 they split the keys, in ``<wrapper>.merge_launches``
 (:func:`merge_launches`), and K2's wrapper the fold kernel it launches
 before the main kernel, in ``edit_attention.fold_launches``
 (:func:`fold_launches`). Every kernel also takes bf16 operands (K1 and K3
-at d = 40, 64 and 512, K4 at d = 40); those launches count apart
+at d = 40, 64 and 512, K4 at d = 40 and 64); those launches count apart
 (:func:`bf16_launch_counts`), and K1's and K3's bf16 merges in
 :func:`merge_launches` with the f32 ones.
 """
@@ -95,10 +95,13 @@ def bf16_launch_counts() -> dict:
 
 
 def head_dim_launch_counts() -> dict:
-    """``{"K1 bf16 d=64": launches, ...}``: K1's and K3's launches by dtype
-    and head dim, each of which runs a kernel of its own."""
+    """``{"K1 bf16 d=64": launches, "K4 dkv f32 d=64": ...}``: K1's, K3's
+    and K4's two passes' launches by dtype and head dim, each of which runs
+    a kernel of its own."""
     return {f"{name} {key}": n
-            for name, fn in (("K1", flash_attention), ("K3", flash_attention_residuals))
+            for name, fn in (("K1", flash_attention), ("K3", flash_attention_residuals),
+                             ("K4 dkv", flash_attention_bwd_dkv),
+                             ("K4 dq", flash_attention_bwd_dq))
             for key, n in sorted(fn.by_head_dim.items())}
 
 
@@ -111,6 +114,8 @@ def reset_launch_counts() -> None:
     flash_attention_residuals.merge_launches = 0
     flash_attention.by_head_dim.clear()
     flash_attention_residuals.by_head_dim.clear()
+    flash_attention_bwd_dkv.by_head_dim.clear()
+    flash_attention_bwd_dq.by_head_dim.clear()
     flash_attention_bwd_dq.launches = 0
     flash_attention_bwd_dq.bf16_launches = 0
     flash_attention_bwd_dkv.launches = 0

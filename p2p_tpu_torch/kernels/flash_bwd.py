@@ -10,8 +10,10 @@ and dq over query tiles, each recomputing the probabilities from K3's
 residuals ``(l, m)``, every product on the tensor cores in 3xTF32 (f32
 accuracy; :mod:`.tf32` emulates it), deterministic (no atomics). ``di = Σ o·do`` is taken
 in PyTorch here, in f32, as the JAX rule takes it outside its kernels. Path
-shape: the U-Net's 64²-pixel self sites under the null-text inversion's
-gradient, ``(1, 8, 4096, 40)``.
+shapes: the U-Net's self sites of 2048 pixels or more under the null-text
+inversion's gradient, ``(1, 8, 4096, 40)`` at SD-1.4 and, at head dim 64,
+``(1, 5, 9216, 64)`` and ``(1, 10, 2304, 64)`` at SD-2.1 768-v and
+``(1, 5, 4096, 64)`` at 512-base; each head dim has kernels of its own.
 
 Both passes also take bf16 q, k, v and do (f32 ``l``, ``m``, ``di``; bf16
 gradients), the gradient of a bf16 inversion: one bf16 tensor-core product
@@ -24,7 +26,8 @@ it). bf16 launches count apart, in ``.bf16_launches``.
 
 On CPU tensors each pass's wrapper (:func:`flash_attention_bwd_dkv`,
 :func:`flash_attention_bwd_dq`) runs its plain version; on CUDA tensors it
-launches its kernel or raises, and counts its launches in ``.launches``.
+launches its kernel or raises, and counts its launches in ``.launches``
+(and by dtype and head dim in ``.by_head_dim``, as K1 and K3 count).
 :class:`FlashAttentionFunction` is K3 forward + K4 backward for either
 device, so the CPU tests exercise the same autograd wiring.
 """
@@ -36,11 +39,11 @@ import ctypes
 import torch
 
 from . import build
-from .flash import check_operands, flash_attention_residuals
+from .flash import _count_head_dim, check_operands, flash_attention_residuals
 
-#: Head dims the CUDA kernels are instantiated for (the U-Net's 64²-pixel
-#: self sites at SD-1.4).
-SUPPORTED_HEAD_DIMS = (40,)
+#: Head dims the CUDA kernels are instantiated for: the U-Net's self sites
+#: of 2048 pixels or more at SD-1.4 (40) and SD-2.1 (64).
+SUPPORTED_HEAD_DIMS = (40, 64)
 
 
 def _ds(p, dp, di, scale: float, dtype):
@@ -158,6 +161,7 @@ def flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale: float):
         flash_attention_bwd_dkv.bf16_launches += 1
     else:
         flash_attention_bwd_dkv.launches += 1
+    _count_head_dim(flash_attention_bwd_dkv, q)
     return dk, dv
 
 
@@ -178,6 +182,7 @@ def flash_attention_bwd_dq(q, k, v, do, l, m, di, scale: float):
         flash_attention_bwd_dq.bf16_launches += 1
     else:
         flash_attention_bwd_dq.launches += 1
+    _count_head_dim(flash_attention_bwd_dq, q)
     return dq
 
 
@@ -195,6 +200,8 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.bf16_launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.bf16_launches = 0
+flash_attention_bwd_dkv.by_head_dim = {}
+flash_attention_bwd_dq.by_head_dim = {}
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -6,9 +6,10 @@ Replace edit, or an inner iteration of null-text inversion.
     python -m p2p_tpu_torch.profile_step --preset sd21 # ... of SD-2.1 768-v
     python -m p2p_tpu_torch.profile_step --inversion   # inner iteration
     python -m p2p_tpu_torch.profile_step --inversion --dtype bf16
+    python -m p2p_tpu_torch.profile_step --inversion --preset sd21 [--dtype bf16]
 
-Random weights (seed 0) of the preset (SD-1.4 at 512² by default; the
-sampling step also of ``sd21`` at 768² or ``sd21base``), CFG 7.5.
+Random weights (seed 0) of the preset (SD-1.4 at 512² by default, ``sd21``
+at 768² or ``sd21base``), CFG 7.5.
 
 The sampling step: 2 prompts, the ``attention_replace`` edit with the store
 off — the ``chip_smoke.py`` main path — in f32 or, with ``--dtype bf16``,
@@ -24,8 +25,10 @@ bf16 kernels). Two measurements:
 
 The inner iteration (``--inversion``): one gradient of the null-text loss
 with respect to the uncond embedding at the first outer step — a batch-1
-U-Net forward and backward, K1 at one 64² self site, K3 and K4 at four —
-and the loss read back to the host, as ``engine.inversion.null_optimize``
+U-Net forward and backward, K1 at the self site of 2048 pixels or more
+before the first cross site, K3 and K4 at the others (SD-1.4: 1 and 4 at
+64², d = 40; SD-2.1 768-v: 1 and 9 at 96² and 48², d = 64) — and the
+loss read back to the host, as ``engine.inversion.null_optimize``
 runs it, in f32 or, with ``--dtype bf16``, in bf16 (the U-Net, the latent
 and the conditional ε in bf16, the embedding f32 and cast at the call; K1,
 K3 and K4 as their bf16 kernels). ms per inner iteration over 10

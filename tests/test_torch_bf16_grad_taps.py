@@ -158,7 +158,11 @@ def test_norm_cotangent_bf16_and_as_far_from_f32_as_jax(name):
 REDUCTIONS = [((2, 48, 48, 8, 4), (1, 2, 4)), ((2, 48, 48, 8, 4), (1, 2)),
               ((2, 24, 24, 8, 8), (1, 2, 4)), ((1, 64, 64, 32, 10), (1, 2, 4)),
               ((1, 96, 96, 32, 10), (1, 2)), ((1, 8, 8, 32, 40), (1, 2, 4)),
-              ((1, 4096, 320), (2,)), ((2, 77, 1280), (2,)), ((2, 1100, 4), (1,))]
+              ((1, 4096, 320), (2,)), ((2, 77, 1280), (2,)), ((2, 1100, 4), (1,)),
+              # SD-2.1 768-v's gradient: its 96² and 48² group norms and a
+              # layer norm over 320 channels at 9216 tokens.
+              ((1, 96, 96, 32, 10), (1, 2, 4)), ((1, 48, 48, 32, 20), (1, 2, 4)),
+              ((1, 48, 48, 32, 20), (1, 2)), ((1, 9216, 320), (2,))]
 
 
 @pytest.mark.parametrize("shape,dims", REDUCTIONS, ids=lambda v: "x".join(map(str, v)))

@@ -1,5 +1,5 @@
-"""The port's boundary: ``p2p_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, the package imports with JAX unavailable,
+"""The port's boundary: ``p2p_tpu_torch``, ``chip_smoke.py`` and
+``tools/k4_compare.py`` import neither JAX nor the JAX package, the package imports with JAX unavailable,
 and its entry points never fall back to the CPU on their own."""
 
 import ast
@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "p2p_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "p2p_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "k4_compare.py"]
 
 
 def _forbidden(name: str) -> bool:

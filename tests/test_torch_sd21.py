@@ -21,6 +21,10 @@
   of the JAX package's (``tests/test_torch_pipeline.py``'s bars); bf16
   within √2 of the JAX package's own bf16-vs-f32 distance and at least half
   of it from the port's f32 (``tests/test_torch_bf16_pipeline.py``'s bar).
+- The inversion's K4 guard: every preset's head dims have K4 kernels, so
+  the CLI takes ``invert``/``replay`` on SD-2.1, and a head dim without
+  them is refused by name (``tests/test_torch_sd21_inversion.py`` holds
+  the SD-2.1 inversion itself).
 """
 
 import dataclasses
@@ -250,14 +254,31 @@ def test_text2image_bf16_matches_jax_bf16(runs, fused):
     assert own[0] >= 0.5 * bar[0] and own[1] >= 0.5 * bar[1], msg
 
 
-@pytest.mark.parametrize("cmd", ["invert", "replay"])
-def test_cli_inversion_on_sd21_names_k4(cmd, tmp_path):
-    """``generate`` and ``edit`` take the SD-2.1 presets; ``invert`` and
-    ``replay`` refuse them, naming K4 at d = 64."""
-    assert cli.build_parser().parse_args(
-        ["edit", "--preset", "sd21base", "--source", "a", "--target", "b"]).preset == "sd21base"
-    argv = ([cmd, "--preset", "sd21", "--device", "cpu"]
-            + (["--image", "x.png", "--prompt", "a cat"] if cmd == "invert"
-               else ["--artifact", str(tmp_path / "a.npz")]))
-    with pytest.raises(NotImplementedError, match="K4.*head dim 64"):
-        cli.main(argv)
+K4_CASES = [("tiny", None), ("sd14", None), ("sd21", None), ("sd21base", None),
+            ("invert", "cli"), ("replay", "cli"), ("head_dim_80", 80)]
+
+
+@pytest.mark.parametrize("case,arg", K4_CASES, ids=[c for c, _ in K4_CASES])
+def test_cli_inversion_on_sd21_names_k4(case, arg, tmp_path):
+    """K4 has kernels at every preset's head dims, so ``require_k4`` passes
+    for each preset and the CLI's ``invert`` and ``replay`` take the SD-2.1
+    presets (``_reject_inversion`` on their parsed arguments: ``cli.main``
+    would build SD-2.1's weights on the CPU); a config whose self site of
+    2048 pixels or more has a head dim without kernels is still refused,
+    naming it."""
+    from p2p_tpu_torch.engine.inversion import require_k4
+
+    if arg is None:
+        require_k4(p_config.PRESET_CONFIGS[case], case)
+    elif arg == "cli":
+        argv = ([case, "--preset", "sd21", "--device", "cpu"]
+                + (["--image", "x.png", "--prompt", "a cat"] if case == "invert"
+                   else ["--artifact", str(tmp_path / "a.npz"), "--blend-resolution", "24"]))
+        args = cli.build_parser().parse_args(argv)
+        assert (args.cmd, args.preset) == (case, "sd21")
+        assert cli._reject_inversion(args) is None
+    else:
+        cfg = dataclasses.replace(p_config.SD14, unet=dataclasses.replace(
+            p_config.SD14.unet, head_dim=arg))
+        with pytest.raises(NotImplementedError, match=f"K4.*head dim {arg}"):
+            require_k4(cfg, "invert")

@@ -105,11 +105,12 @@ def _backward(q, k, v, do, di, scale, mm):
             mm(p.transpose(-1, -2).contiguous(), do))
 
 
-def test_3xtf32_backward_meets_the_card_tolerance_and_1xtf32_does_not():
+@pytest.mark.parametrize("d", [40, 64])
+def test_3xtf32_backward_meets_the_card_tolerance_and_1xtf32_does_not(d):
     """``chip_smoke.py`` holds K4 within 1e-5 of the plain version's largest
-    gradient: the 3xTF32 products are well inside that, one TF32 pass is
-    not, so the check on the card tells the two apart."""
-    d = 40
+    gradient at SD-1.4's head dim 40 and SD-2.1's 64: the 3xTF32 products
+    are well inside that, one TF32 pass is not, so the check on the card
+    tells the two apart."""
     q, k, v, do = _arrays(7, 4, (1, 2, 512, d))
     scale = d ** -0.5
     o, l, m = K.flash_attention_residuals_plain(q, k, v, scale)
