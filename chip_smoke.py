@@ -66,7 +66,8 @@ Phases, each of which raises on failure:
    ``TC_TOL`` relative, and K1 in bf16 at d = 512, (1, 1, 4096, 512) and
    ragged, each within ``BF16_TOL`` of its bf16 plain version's largest
    magnitude and bitwise across two launches, timed beside SDPA in bf16
-   (forward, or forward and backward for K4) and the bf16 bound; then
+   (forward, or for K4 the backward alone, with forward and backward
+   together beside it) and the bf16 bound; then
    ``invert(dtype=torch.bfloat16)`` at phase 4's settings on the same
    image, with exact launch counts (bf16 K1 at d = 40 for every forward
    without gradient and the encode's bf16 K1 at d = 512, one f32 K1 for the
@@ -79,7 +80,8 @@ Phases, each of which raises on failure:
    counts, the null-text invariant);
 8. SD-2.1 (``models/config.py:SD21`` and ``SD21_BASE``, head dim 64): K1
    at d = 64 in f32 (``flash_d64_kernel``, 3xTF32, within ``TC_TOL``) and
-   bf16 (``flash_d64_bf16_kernel``, within ``BF16_TOL``) at the self sites
+   bf16 (``flash_d64_sm90_kernel``: wgmma and TMA, its SASS checked for
+   HGMMA and UTMALDG and no HMMA; within ``BF16_TOL``) at the self sites
    of both configs, (4, 5, 9216, 64), (4, 10, 2304, 64) and (4, 5, 4096,
    64), and ragged; K3 (f32 ``m``, ``l`` within ``TC_TOL`` relative) and
    both K4 passes at d = 64 in f32 (3xTF32, within ``TC_TOL``) and bf16
@@ -486,9 +488,42 @@ def k1_bf16_phases(torch, K, F):
     return rows
 
 
+def sdpa_times(torch, F, q, k, v, do, scale: float, iters: int):
+    """``(backward, forward_and_backward)`` ms of SDPA in q's dtype: the
+    backward alone (``torch.autograd.grad`` on a retained forward), which
+    computes K4's function, and the two together."""
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    bwd = cuda_ms(torch, lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                     retain_graph=True), iters)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    return bwd, cuda_ms(torch, fwd_bwd, iters)
+
+
+def sm90_sass(build) -> dict:
+    """Instruction counts in the SASS of the built ``flash_fwd_sm90``
+    library (``cuobjdump -sass``): raises unless its kernel runs on Hopper's
+    wgmma (HGMMA) fed by TMA (UTMALDG), with no ``mma.sync`` (HMMA)."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path("flash_fwd_sm90"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "HMMA", "MUFU.EX2")}
+    print(f"flash_fwd_sm90 SASS: {counts}")
+    if not counts["HGMMA"] or not counts["UTMALDG"] or counts["HMMA"]:
+        raise RuntimeError(f"flash_d64_sm90_kernel is not on wgmma and TMA: {counts}")
+    return counts
+
+
 def k1_d64_phases(torch, K, F, dtype):
     """K1 at d = 64, SD-2.1's head dim, in ``dtype`` (f32: flash_d64_kernel,
-    within ``TC_TOL``; bf16: flash_d64_bf16_kernel, within ``BF16_TOL`` of
+    within ``TC_TOL``; bf16: flash_d64_sm90_kernel, within ``BF16_TOL`` of
     the plain output's largest magnitude): the self sites of the 768-v
     edit, (4, 5, 9216, 64) and (4, 10, 2304, 64), and of the 512-base one,
     (4, 5, 4096, 64), then the ragged lengths S = 4100 and Sq = 300 with
@@ -540,12 +575,13 @@ def k34_d64_phases(torch, K, F, dtype):
     2304, 64) and 512-base's (1, 5, 4096, 64), then the ragged lengths S =
     4100 and Sq = 300 with Sk = 70. Outputs and gradients within ``TC_TOL``
     (f32: flash_d64_kernel, flash_bwd_{dkv,dq}_kernel<64>, all 3xTF32) or
-    ``BF16_TOL`` (bf16: flash_d64_bf16_kernel and the bf16 passes) of the
+    ``BF16_TOL`` (bf16: flash_d64_sm90_kernel and the bf16 passes) of the
     plain versions' largest magnitude, K3's f32 ``m`` and ``l`` within
     ``TC_TOL`` relative, each bitwise across two launches; the K4 passes
     take the plain forward's residuals. The path shapes are timed beside
     the plain versions, the bound and SDPA in ``dtype``: forward for K3,
-    forward and backward for K4. Returns ``{"K3" | "K4_dkv" | "K4_dq":
+    the backward alone for K4 (``library_ms``; forward and backward
+    together in ``sdpa_fwd_bwd_ms``). Returns ``{"K3" | "K4_dkv" | "K4_dq":
     rows}``."""
     bf16 = dtype == torch.bfloat16
     tol, tag = (BF16_TOL, "bf16 d=64") if bf16 else (TC_TOL, "d=64")
@@ -590,13 +626,7 @@ def k34_d64_phases(torch, K, F, dtype):
                 raise RuntimeError(f"K4 {tag} {label} {name}: two launches differ")
         if h == 2:                               # ragged: checked, not timed
             continue
-        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-            torch.autograd.grad(out, (qg, kg, vg), do)
-
-        sdpa_fb_ms = cuda_ms(torch, sdpa_fwd_bwd, 5)
+        sdpa_bwd_ms, sdpa_fb_ms = sdpa_times(torch, F, q, k, v, do, scale, 5)
         n = q.element_size() * q.numel()         # bytes of one (B, H, S, D) tensor
         stats = 4 * b * h * sq                   # bytes of one (B, H, S) f32 tensor
         flops = 2.0 * b * h * sq * sk * d        # one S x S x d product
@@ -615,20 +645,20 @@ def k34_d64_phases(torch, K, F, dtype):
                                    q, k, v, do, l, m, di, scale), iters),
                                "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
                                    q, k, v, do, l, m, di, scale), 2),
-                               "library_ms": sdpa_fb_ms,
+                               "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
                                **bound(4 * flops, 6 * n + 3 * stats, True, bf16)})
         rows["K4_dq"].append({**common, "max_abs_err": err_dq,
                               "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
                                   q, k, v, do, l, m, di, scale), iters),
                               "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
                                   q, k, v, do, l, m, di, scale), 2),
-                              "library_ms": sdpa_fb_ms,
+                              "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
                               **bound(3 * flops, 5 * n + 3 * stats, True, bf16)})
         for name in rows:
             r = rows[name][-1]
             print(f"{name} {tag} {label}: max|Δ| {r['max_abs_err']:.3g}  kernel "
                   f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa "
-                  f"{'fwd' if name == 'K3' else 'fwd+bwd'} {r['library_ms']:.4f} ms  "
+                  f"{'fwd' if name == 'K3' else 'bwd'} {r['library_ms']:.4f} ms  "
                   f"{bound_text(r)}")
     print(f"K3/K4 {tag}: two launches give bitwise-equal outputs at every geometry")
     return rows
@@ -810,7 +840,8 @@ def k34_bf16_phases(torch, K, F):
     ``BF16_TOL`` of the bf16 plain versions' largest magnitude, K3's f32
     ``m`` and ``l`` within ``TC_TOL`` relative, each bitwise across two
     launches. The K4 passes take the plain forward's residuals. SDPA in
-    bf16 is the yardstick: forward for K3, forward and backward for K4."""
+    bf16 is the yardstick: forward for K3, the backward alone for K4 (with
+    forward and backward together in ``sdpa_fwd_bwd_ms``)."""
     gen = torch.Generator("cuda").manual_seed(5)
     bf16 = torch.bfloat16
     rows = {}
@@ -851,13 +882,7 @@ def k34_bf16_phases(torch, K, F):
                 raise RuntimeError(f"K4 bf16 {tag} {name}: two launches differ")
         if sq != 4096:
             continue
-        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-            torch.autograd.grad(out, (qg, kg, vg), do)
-
-        sdpa_fb_ms = cuda_ms(torch, sdpa_fwd_bwd, 10)
+        sdpa_bwd_ms, sdpa_fb_ms = sdpa_times(torch, F, q, k, v, do, scale, 10)
         n = 2 * q.numel()                        # bytes of one (B, H, S, D) bf16 tensor
         stats = 4 * b * h * sq                   # bytes of one (B, H, S) f32 tensor
         flops = 2.0 * b * h * sq * sk * d        # one S x S x d product
@@ -874,19 +899,19 @@ def k34_bf16_phases(torch, K, F):
                               q, k, v, do, l, m, di, scale), 20),
                           "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
                               q, k, v, do, l, m, di, scale), 3),
-                          "library_ms": sdpa_fb_ms,
+                          "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
                           **bound(4 * flops, 6 * n + 3 * stats, True, bf16=True)}
         rows["K4_dq"] = {"shape": list(shape_q), "max_abs_err": err_dq,
                          "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
                              q, k, v, do, l, m, di, scale), 20),
                          "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
                              q, k, v, do, l, m, di, scale), 3),
-                         "library_ms": sdpa_fb_ms,
+                         "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
                          **bound(3 * flops, 5 * n + 3 * stats, True, bf16=True)}
     for name, r in rows.items():
         print(f"{name} bf16 {r['shape']}: max|Δ| {r['max_abs_err']:.3g}  kernel "
               f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa bf16 "
-              f"{'fwd+bwd ' if name != 'K3' else ''}{r['library_ms']:.4f} ms  "
+              f"{'bwd ' if name != 'K3' else ''}{r['library_ms']:.4f} ms  "
               f"{bound_text(r)}")
     print("K3/K4 bf16: two launches give bitwise-equal outputs at every geometry")
     return rows
@@ -1393,6 +1418,7 @@ def main() -> int:
     from p2p_tpu_torch.models.config import SD14
     from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
+    sass = sm90_sass(build)
     d40_blocks, d40_warps = d40_occupancy()
     print(f"K1/K3 d = 40 kernel: {d40_warps} warps a block, {d40_blocks} "
           "blocks per SM")
@@ -1505,14 +1531,16 @@ def main() -> int:
                      "p2p_tpu/models/nn.py:308", inv16_counts["flash_attn_bwd_dq_bf16"],
                      [k34_bf16["K4_dq"]],
                      units="tensor cores, bf16 (flash_bwd_dq_bf16_kernel)",
-                     note="launches from the bf16 inversion; library_ms is SDPA "
-                          "forward and backward in bf16"),
+                     note="launches from the bf16 inversion; library_ms is SDPA's "
+                          "backward alone in bf16, sdpa_fwd_bwd_ms its forward and "
+                          "backward"),
         kernel_entry("flash_attn_bwd_dkv_bf16", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
                      "p2p_tpu/models/nn.py:308", inv16_counts["flash_attn_bwd_dkv_bf16"],
                      [k34_bf16["K4_dkv"]],
                      units="tensor cores, bf16 (flash_bwd_dkv_bf16_kernel)",
-                     note="launches from the bf16 inversion; library_ms is SDPA "
-                          "forward and backward in bf16"),
+                     note="launches from the bf16 inversion; library_ms is SDPA's "
+                          "backward alone in bf16, sdpa_fwd_bwd_ms its forward and "
+                          "backward"),
         kernel_entry("window_sum_bf16", "p2p_tpu_torch/csrc/window_sum.cu",
                      "p2p_tpu/models/nn.py:140", inv16_counts["window_sum_bf16"],
                      window_sums,
@@ -1538,20 +1566,23 @@ def main() -> int:
                      units="tensor cores, 3xTF32 (flash_d64_kernel)",
                      note="K1 at SD-2.1's head dim 64 (wrapper flash_attention); "
                           "launches from the sd21 f32 edit; library_ms is SDPA in f32"),
-        kernel_entry("flash_attn_d64_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_attn_d64_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:330", dims21_16["K1 bf16 d=64"], k1_d64_bf16,
-                     units="tensor cores, bf16 (flash_d64_bf16_kernel, attn_bf16.cuh)",
-                     note="launches from the sd21 bf16 edit; library_ms is SDPA in bf16"),
+                     units="tensor cores, bf16: wgmma (m64n128k16 Q K^T, m64n64k16 P V "
+                           "with P from registers) fed by TMA (flash_d64_sm90_kernel)",
+                     note="launches from the sd21 bf16 edit; library_ms is SDPA in bf16",
+                     sass=sass),
         kernel_entry("flash_attn_residuals_d64", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:343", dims_inv21["K3 f32 d=64"], k34_d64["K3"],
                      units="tensor cores, 3xTF32 (flash_d64_kernel writing m and l)",
                      note="K3 at d = 64, the SD-2.1 inversion's gradient sites (768-v "
                           "and 512-base shapes); launches from the sd21 f32 inversion; "
                           "library_ms is SDPA forward in f32"),
-        kernel_entry("flash_attn_residuals_d64_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_attn_residuals_d64_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:343", dims_inv21_16["K3 bf16 d=64"],
                      k34_d64_bf16["K3"],
-                     units="tensor cores, bf16 (flash_d64_bf16_kernel writing m and l)",
+                     units="tensor cores, bf16: wgmma fed by TMA (flash_d64_sm90_kernel "
+                           "writing m and l)",
                      note="launches from the sd21 bf16 inversion; library_ms is SDPA "
                           "forward in bf16"),
         *(kernel_entry(f"flash_attn_bwd_{p}_d64{sfx}", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -1561,8 +1592,8 @@ def main() -> int:
                               f"(flash_bwd_{p}{sfx}_kernel<64>)"),
                        note=f"K4's {p} pass at d = 64, the SD-2.1 inversion's gradient "
                             f"sites (768-v and 512-base shapes); launches from the sd21 "
-                            f"{dt} inversion; library_ms is SDPA forward and backward "
-                            f"in {dt}")
+                            f"{dt} inversion; library_ms is SDPA's backward alone in "
+                            f"{dt}, sdpa_fwd_bwd_ms its forward and backward")
           for sfx, dt, dims, rows in (("", "f32", dims_inv21, k34_d64),
                                       ("_bf16", "bf16", dims_inv21_16, k34_d64_bf16))
           for p in ("dkv", "dq")),

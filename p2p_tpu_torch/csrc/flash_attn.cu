@@ -93,9 +93,9 @@
 // merged by flash_merge_kernel<bf16>. Bound: 4*S^2*d flops per head at 989
 // TFLOP/s, 0.035 ms (the bytes take 0.005 ms).
 //
-// flash_d64_bf16_kernel (d = 64, bf16: K1 at SD-2.1's self sites of a bf16
-// edit, (4, 5, 9216, 64), (4, 10, 2304, 64), (4, 5, 4096, 64); K3 with m and
-// l), flash_d40_bf16_kernel's tile templates at d = 64.
+// K1 and K3 in bf16 at d = 64 (SD-2.1's self sites) are not here: they run
+// on wgmma and TMA in flash_fwd_sm90.cu, behind an entry of the same
+// signature as p2p_flash_attn_fwd_bf16, which refuses d = 64.
 //
 // No kernel here uses atomics: two launches give the same bits.
 #include "attn_bf16.cuh"
@@ -1012,34 +1012,6 @@ flash_d40_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          l_out ? l_out + bh * sq : nullptr);
 }
 
-// ----------------------------------------------------------- d = 64, bf16
-
-namespace d64bf {
-constexpr int D = 64, BS = 64, NW = 8;
-using T = AttnBf16<D, BS, NW>;
-}  // namespace d64bf
-
-// flash_d40_bf16_kernel at d = 64 (K1 at SD-2.1's self sites in bf16, and
-// K3 with m and l): four k16 steps of Q K^T and no k8 tail, eight n-tiles of
-// P V; a 64-wide row is eight 16-byte chunks, padded to nine (LD = 72) so an
-// ldmatrix reads eight bank groups. Bound: 4*S^2*d flops per head at 989
-// TFLOP/s, 0.440 ms at (4, 5, 9216, 64).
-__global__ void __launch_bounds__(d64bf::T::NT, 2)
-flash_d64_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ m_out, float* __restrict__ l_out, int sq,
-                      int sk, float scale2) {
-  using namespace d64bf;
-  static_assert(T::LD == 72 && !T::TAIL && T::NO % 2 == 0, "d = 64 bf16 geometry");
-  extern __shared__ __align__(16) unsigned char smem_bf[];
-  const size_t bh = blockIdx.y;
-  attend_bf16<D, BS, NW>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, nullptr,
-                         o + bh * sq * D, blockIdx.x * T::ROWS, sq, sk, scale2, false,
-                         reinterpret_cast<bf16*>(smem_bf),
-                         m_out ? m_out + bh * sq : nullptr,
-                         l_out ? l_out + bh * sq : nullptr);
-}
-
 // One launch of a bf16 attention kernel of geometry T (grid: query tiles of
 // T::ROWS rows x bh).
 template <class T, class Kernel>
@@ -1401,9 +1373,9 @@ extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v
 }
 
 // The bf16 kernels: q, k, v and o contiguous bf16 with the shapes above, d =
-// 40, 64 or 512; m and l as above (f32), both null or both non-null; nsplit and
-// part as above (f32 partials), nsplit 1 unless d = 512. Returns a
-// cudaError_t (0 on success).
+// 40 or 512 (d = 64: p2p_flash_attn_fwd_bf16_sm90, flash_fwd_sm90.cu); m and
+// l as above (f32), both null or both non-null; nsplit and part as above (f32
+// partials), nsplit 1 unless d = 512. Returns a cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                        void* o, float* m, float* l, float* part,
                                        int nsplit, int bh, int sq, int sk, int d,
@@ -1420,9 +1392,6 @@ extern "C" int p2p_flash_attn_fwd_bf16(const void* q, const void* k, const void*
   switch (d) {
     case 40:
       return launch_bf16<d40bf::T>(flash_d40_bf16_kernel, qh, kh, vh, oh, m, l, bh, sq,
-                                   sk, scale, s);
-    case 64:
-      return launch_bf16<d64bf::T>(flash_d64_bf16_kernel, qh, kh, vh, oh, m, l, bh, sq,
                                    sk, scale, s);
     default:
       return cudaErrorInvalidValue;

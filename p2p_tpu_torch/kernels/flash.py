@@ -26,13 +26,16 @@ at ``(4, 5, 9216, 64)`` and ``(4, 10, 2304, 64)`` (768-v) or ``(4, 5, 4096,
 
 K1 and K3 also take bf16 q, k and v: at d = 40 (the U-Net's 64²-pixel
 self sites of a bf16 edit, and of a bf16 inversion's forwards and
-gradients) ``flash_d40_bf16_kernel``, at d = 64 (SD-2.1's self sites)
-``flash_d64_bf16_kernel``, at d = 512 (the bf16 VAE encode of a
+gradients) ``flash_d40_bf16_kernel``, at d = 512 (the bf16 VAE encode of a
 bf16 inversion, (1, 1, 4096, 512)) ``flash_d512_bf16_kernel`` with the same
-key split and merge as in f32; both one bf16 tensor-core pass a product
-with f32 accumulation, the unnormalized P rounded to bf16 before P·V as the
-JAX library kernel rounds it (``p.astype(v.dtype)``), the output rounded to
-bf16 once, ``m`` and ``l`` f32 (``l`` the sum of the unrounded P).
+key split and merge as in f32, both ``mma.sync``; at d = 64 (SD-2.1's self
+sites) ``flash_d64_sm90_kernel`` (``csrc/flash_fwd_sm90.cu``, its own
+library), on Hopper's ``wgmma`` and TMA, 128 keys a tile. Each is one bf16
+tensor-core pass a product with f32 accumulation, the unnormalized P of a
+key tile rounded to bf16 before P·V as the JAX library kernel rounds it
+(``p.astype(v.dtype)``; :func:`.bf16.k1_step` gives the tile), the output
+rounded to bf16 once, ``m`` and ``l`` f32 (``l`` the sum of the unrounded
+P).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its launches by dtype
@@ -129,16 +132,37 @@ def merge_partials(outs, ls, ms):
     return out / l[..., None], l, m
 
 
+#: The library of each forward entry: bf16 at d = 64 runs on Hopper's wgmma
+#: and TMA in a library of its own.
+ENTRIES = {"p2p_flash_attn_fwd": "flash_attn",
+           "p2p_flash_attn_fwd_bf16": "flash_attn",
+           "p2p_flash_attn_fwd_bf16_sm90": "flash_fwd_sm90"}
+_FORWARD: dict = {}
+
+
+def forward_entry(entry: str):
+    """``(library, function)`` of a forward C entry, its argument types set
+    once: q, k, v, o, m, l, part; nsplit, bh, sq, sk, d; scale, stream."""
+    found = _FORWARD.get(entry)
+    if found is None:
+        lib = build.library(ENTRIES[entry])
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        found = _FORWARD[entry] = (lib, fn)
+    return found
+
+
+def entry_for(dtype: torch.dtype, d: int) -> str:
+    """The forward C entry that runs ``dtype`` at head dim ``d``."""
+    if dtype != torch.bfloat16:
+        return "p2p_flash_attn_fwd"
+    return "p2p_flash_attn_fwd_bf16_sm90" if d == 64 else "p2p_flash_attn_fwd_bf16"
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attn")
-    fn = lib.p2p_flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.p2p_flash_attn_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     occ = lib.p2p_flash_attn_d40_occupancy
     occ.argtypes = [ctypes.POINTER(ctypes.c_int)]
     occ.restype = ctypes.c_int
@@ -176,7 +200,8 @@ def check_operands(what: str, tensors, head_dims, dtype=torch.float32) -> None:
 
 def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: float, residuals: bool):
-    """One launch of ``p2p_flash_attn_fwd``: ``(out, l, m, merged)``, with
+    """One launch of the forward entry for q's dtype and head dim
+    (:func:`entry_for`): ``(out, l, m, merged)``, with
     ``l`` and ``m`` None unless ``residuals``, and ``merged`` whether the
     call split the keys and so also launched the merge kernel."""
     if q.device.type != "cuda":
@@ -190,7 +215,8 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operands(what, (("q", q), ("k", k), ("v", v)),
                    SUPPORTED_HEAD_DIMS_BF16 if bf16 else SUPPORTED_HEAD_DIMS,
                    torch.bfloat16 if bf16 else torch.float32)
-    lib = _lib()
+    entry = entry_for(q.dtype, d)
+    lib, fn = forward_entry(entry)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     l = m = None
@@ -204,8 +230,7 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if nsplit > 1:
             part = torch.empty(nsplit * b * h * sq * (d + 2), dtype=torch.float32,
                                device=q.device)
-    entry = "p2p_flash_attn_fwd_bf16" if bf16 else "p2p_flash_attn_fwd"
-    status = getattr(lib, entry)(
+    status = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
         None if part is None else part.data_ptr(), nsplit,
