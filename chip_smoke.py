@@ -87,7 +87,11 @@ Phases, each of which raises on failure:
    both K4 passes at d = 64 in f32 (3xTF32, within ``TC_TOL``) and bf16
    (within ``BF16_TOL``) at the inversion's gradient sites of both
    configs, (1, 5, 9216, 64), (1, 10, 2304, 64) and (1, 5, 4096, 64), and
-   ragged; K2 at every D = 64 geometry of both configs' Replace edits in
+   ragged (Sq = 300 with Sk = 70, and Sq = 70 with Sk = 300); in bf16 K4 is
+   ``flash_bwd_{dkv,dq}_sm90_kernel`` (wgmma and TMA, SASS checked as K1's;
+   ptxas must report no spills in either library), and K4 and SDPA's
+   backward are also timed as replayed CUDA graphs; K2 at every D = 64
+   geometry of both configs' Replace edits in
    both dtypes; K1 at d = 512 at the 768² VAE's (2, 1, 9216, 512) and (1,
    1, 9216, 512) (in phases 2 and 7) and the norms' window sums at 768-v's
    shapes (phase 7); each bitwise across two launches and timed beside its
@@ -504,21 +508,58 @@ def sdpa_times(torch, F, q, k, v, do, scale: float, iters: int):
     return bwd, cuda_ms(torch, fwd_bwd, iters)
 
 
-def sm90_sass(build) -> dict:
-    """Instruction counts in the SASS of the built ``flash_fwd_sm90``
-    library (``cuobjdump -sass``): raises unless its kernel runs on Hopper's
-    wgmma (HGMMA) fed by TMA (UTMALDG), with no ``mma.sync`` (HMMA)."""
+#: The libraries written on Hopper's own instructions (wgmma, TMA).
+SM90_LIBRARIES = ("flash_fwd_sm90", "flash_bwd_sm90")
+
+
+def sm90_sass(build, library: str) -> dict:
+    """Instruction counts in the SASS of a built library of
+    ``SM90_LIBRARIES`` (``cuobjdump -sass``): raises unless its kernels run
+    on Hopper's wgmma (HGMMA) fed by TMA (UTMALDG), with no ``mma.sync``
+    (HMMA)."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path("flash_fwd_sm90"))],
+    sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(library))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
     counts = {op: len(re.findall(rf"\b{op}\b", sass))
               for op in ("HGMMA", "UTMALDG", "HMMA", "MUFU.EX2")}
-    print(f"flash_fwd_sm90 SASS: {counts}")
+    print(f"{library} SASS: {counts}")
     if not counts["HGMMA"] or not counts["UTMALDG"] or counts["HMMA"]:
-        raise RuntimeError(f"flash_d64_sm90_kernel is not on wgmma and TMA: {counts}")
+        raise RuntimeError(f"{library} is not on wgmma and TMA: {counts}")
     return counts
+
+
+def check_no_spills(report: dict) -> None:
+    """Raise if ptxas spilled in a freshly built library of
+    ``SM90_LIBRARIES``: their wgmma accumulators live in registers."""
+    import re
+
+    for name in SM90_LIBRARIES:
+        if name not in report:
+            continue
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                             report[name]["ptxas"])]
+        if any(spills):
+            raise RuntimeError(f"{name}: ptxas spilled ({spills} bytes)")
+
+
+def sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale: float, iters: int) -> float:
+    """ms of SDPA's backward alone in q's dtype as a replayed CUDA graph:
+    the forward runs on the capturing stream, so that autograd runs the
+    backward there, and the backward alone is captured."""
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        for _ in range(2):
+            torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    return cuda_ms(torch, graph.replay, iters)
 
 
 def k1_d64_phases(torch, K, F, dtype):
@@ -573,23 +614,25 @@ def k34_d64_phases(torch, K, F, dtype):
     """K3 (forward with residuals) and both K4 passes at d = 64, SD-2.1's
     gradient sites, in ``dtype``: 768-v's (1, 5, 9216, 64) and (1, 10,
     2304, 64) and 512-base's (1, 5, 4096, 64), then the ragged lengths S =
-    4100 and Sq = 300 with Sk = 70. Outputs and gradients within ``TC_TOL``
-    (f32: flash_d64_kernel, flash_bwd_{dkv,dq}_kernel<64>, all 3xTF32) or
-    ``BF16_TOL`` (bf16: flash_d64_sm90_kernel and the bf16 passes) of the
-    plain versions' largest magnitude, K3's f32 ``m`` and ``l`` within
-    ``TC_TOL`` relative, each bitwise across two launches; the K4 passes
-    take the plain forward's residuals. The path shapes are timed beside
-    the plain versions, the bound and SDPA in ``dtype``: forward for K3,
-    the backward alone for K4 (``library_ms``; forward and backward
-    together in ``sdpa_fwd_bwd_ms``). Returns ``{"K3" | "K4_dkv" | "K4_dq":
-    rows}``."""
+    4100, Sq = 300 with Sk = 70 and Sq = 70 with Sk = 300. Outputs and
+    gradients within ``TC_TOL`` (f32: flash_d64_kernel,
+    flash_bwd_{dkv,dq}_kernel<64>, all 3xTF32) or ``BF16_TOL`` (bf16:
+    flash_d64_sm90_kernel and flash_bwd_{dkv,dq}_sm90_kernel) of the plain
+    versions' largest magnitude, K3's f32 ``m`` and ``l`` within ``TC_TOL``
+    relative, each bitwise across two launches; the K4 passes take the
+    plain forward's residuals. The path shapes are timed beside the plain
+    versions, the bound and SDPA in ``dtype``: forward for K3, the backward
+    alone for K4 (``library_ms``; forward and backward together in
+    ``sdpa_fwd_bwd_ms``); K4 and SDPA's backward also as replayed CUDA
+    graphs (``graph_ms``, ``library_graph_ms``), their device time without
+    the host's. Returns ``{"K3" | "K4_dkv" | "K4_dq": rows}``."""
     bf16 = dtype == torch.bfloat16
     tol, tag = (BF16_TOL, "bf16 d=64") if bf16 else (TC_TOL, "d=64")
     gen = torch.Generator("cuda").manual_seed(15 if bf16 else 16)
     rows = {"K3": [], "K4_dkv": [], "K4_dq": []}
     for shape_q, sk in (((1, 5, 9216, 64), 9216), ((1, 10, 2304, 64), 2304),
                         ((1, 5, 4096, 64), 4096), ((1, 2, 4100, 64), 4100),
-                        ((1, 2, 300, 64), 70)):
+                        ((1, 2, 300, 64), 70), ((1, 2, 70, 64), 300)):
         b, h, sq, d = shape_q
         q, do = (torch.randn(shape_q, generator=gen, device="cuda").to(dtype)
                  for _ in range(2))
@@ -632,6 +675,8 @@ def k34_d64_phases(torch, K, F, dtype):
         flops = 2.0 * b * h * sq * sk * d        # one S x S x d product
         iters = 5 if sq == 9216 else 10
         common = {"shape": list(shape_q)}
+        sdpa_graph = {"library_graph_ms": sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale,
+                                                            iters)}
         rows["K3"].append({**common, "max_abs_err": err3,
                            "ms": cuda_ms(torch, lambda: K.flash_attention_residuals(
                                q, k, v, scale), iters),
@@ -643,6 +688,8 @@ def k34_d64_phases(torch, K, F, dtype):
         rows["K4_dkv"].append({**common, "max_abs_err": err_dkv,
                                "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
                                    q, k, v, do, l, m, di, scale), iters),
+                               "graph_ms": graph_ms(torch, lambda: K.flash_attention_bwd_dkv(
+                                   q, k, v, do, l, m, di, scale), iters), **sdpa_graph,
                                "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
                                    q, k, v, do, l, m, di, scale), 2),
                                "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
@@ -650,15 +697,19 @@ def k34_d64_phases(torch, K, F, dtype):
         rows["K4_dq"].append({**common, "max_abs_err": err_dq,
                               "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
                                   q, k, v, do, l, m, di, scale), iters),
+                              "graph_ms": graph_ms(torch, lambda: K.flash_attention_bwd_dq(
+                                  q, k, v, do, l, m, di, scale), iters), **sdpa_graph,
                               "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
                                   q, k, v, do, l, m, di, scale), 2),
                               "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
                               **bound(3 * flops, 5 * n + 3 * stats, True, bf16)})
         for name in rows:
             r = rows[name][-1]
+            graphs = ("" if name == "K3" else f" (graph {r['graph_ms']:.4f} / sdpa bwd graph "
+                      f"{r['library_graph_ms']:.4f})")
             print(f"{name} {tag} {label}: max|Δ| {r['max_abs_err']:.3g}  kernel "
                   f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa "
-                  f"{'fwd' if name == 'K3' else 'bwd'} {r['library_ms']:.4f} ms  "
+                  f"{'fwd' if name == 'K3' else 'bwd'} {r['library_ms']:.4f} ms{graphs}  "
                   f"{bound_text(r)}")
     print(f"K3/K4 {tag}: two launches give bitwise-equal outputs at every geometry")
     return rows
@@ -841,7 +892,10 @@ def k34_bf16_phases(torch, K, F):
     ``m`` and ``l`` within ``TC_TOL`` relative, each bitwise across two
     launches. The K4 passes take the plain forward's residuals. SDPA in
     bf16 is the yardstick: forward for K3, the backward alone for K4 (with
-    forward and backward together in ``sdpa_fwd_bwd_ms``)."""
+    forward and backward together in ``sdpa_fwd_bwd_ms``); K4 and SDPA's
+    backward also as replayed CUDA graphs (``graph_ms``,
+    ``library_graph_ms``), since SDPA's eager backward at this shape reads
+    the host more than the device."""
     gen = torch.Generator("cuda").manual_seed(5)
     bf16 = torch.bfloat16
     rows = {}
@@ -883,6 +937,8 @@ def k34_bf16_phases(torch, K, F):
         if sq != 4096:
             continue
         sdpa_bwd_ms, sdpa_fb_ms = sdpa_times(torch, F, q, k, v, do, scale, 10)
+        sdpa_graph = {"library_graph_ms": sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale,
+                                                            20)}
         n = 2 * q.numel()                        # bytes of one (B, H, S, D) bf16 tensor
         stats = 4 * b * h * sq                   # bytes of one (B, H, S) f32 tensor
         flops = 2.0 * b * h * sq * sk * d        # one S x S x d product
@@ -897,6 +953,8 @@ def k34_bf16_phases(torch, K, F):
         rows["K4_dkv"] = {"shape": list(shape_q), "max_abs_err": err_dkv,
                           "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
                               q, k, v, do, l, m, di, scale), 20),
+                          "graph_ms": graph_ms(torch, lambda: K.flash_attention_bwd_dkv(
+                              q, k, v, do, l, m, di, scale), 20), **sdpa_graph,
                           "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv_plain(
                               q, k, v, do, l, m, di, scale), 3),
                           "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
@@ -904,14 +962,18 @@ def k34_bf16_phases(torch, K, F):
         rows["K4_dq"] = {"shape": list(shape_q), "max_abs_err": err_dq,
                          "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
                              q, k, v, do, l, m, di, scale), 20),
+                         "graph_ms": graph_ms(torch, lambda: K.flash_attention_bwd_dq(
+                             q, k, v, do, l, m, di, scale), 20), **sdpa_graph,
                          "plain_ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dq_plain(
                              q, k, v, do, l, m, di, scale), 3),
                          "library_ms": sdpa_bwd_ms, "sdpa_fwd_bwd_ms": sdpa_fb_ms,
                          **bound(3 * flops, 5 * n + 3 * stats, True, bf16=True)}
     for name, r in rows.items():
+        graphs = ("" if name == "K3" else f" (graph {r['graph_ms']:.4f} / sdpa bwd graph "
+                  f"{r['library_graph_ms']:.4f})")
         print(f"{name} bf16 {r['shape']}: max|Δ| {r['max_abs_err']:.3g}  kernel "
               f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa bf16 "
-              f"{'bwd ' if name != 'K3' else ''}{r['library_ms']:.4f} ms  "
+              f"{'bwd ' if name != 'K3' else ''}{r['library_ms']:.4f} ms{graphs}  "
               f"{bound_text(r)}")
     print("K3/K4 bf16: two launches give bitwise-equal outputs at every geometry")
     return rows
@@ -1412,13 +1474,14 @@ def main() -> int:
             elif "registers" not in line and "spill" not in line:
                 continue
             print(f"  {name}: {line.strip()}")
+    check_no_spills(report)
 
     from p2p_tpu_torch import random_pipeline
     from p2p_tpu_torch.kernels.flash import d40_occupancy
     from p2p_tpu_torch.models.config import SD14
     from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
-    sass = sm90_sass(build)
+    sass, sass_bwd = (sm90_sass(build, name) for name in SM90_LIBRARIES)
     d40_blocks, d40_warps = d40_occupancy()
     print(f"K1/K3 d = 40 kernel: {d40_warps} warps a block, {d40_blocks} "
           "blocks per SM")
@@ -1533,14 +1596,16 @@ def main() -> int:
                      units="tensor cores, bf16 (flash_bwd_dq_bf16_kernel)",
                      note="launches from the bf16 inversion; library_ms is SDPA's "
                           "backward alone in bf16, sdpa_fwd_bwd_ms its forward and "
-                          "backward"),
+                          "backward; graph_ms and library_graph_ms the pass and SDPA's "
+                          "backward alone replayed as CUDA graphs"),
         kernel_entry("flash_attn_bwd_dkv_bf16", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
                      "p2p_tpu/models/nn.py:308", inv16_counts["flash_attn_bwd_dkv_bf16"],
                      [k34_bf16["K4_dkv"]],
                      units="tensor cores, bf16 (flash_bwd_dkv_bf16_kernel)",
                      note="launches from the bf16 inversion; library_ms is SDPA's "
                           "backward alone in bf16, sdpa_fwd_bwd_ms its forward and "
-                          "backward"),
+                          "backward; graph_ms and library_graph_ms the pass and SDPA's "
+                          "backward alone replayed as CUDA graphs"),
         kernel_entry("window_sum_bf16", "p2p_tpu_torch/csrc/window_sum.cu",
                      "p2p_tpu/models/nn.py:140", inv16_counts["window_sum_bf16"],
                      window_sums,
@@ -1585,17 +1650,22 @@ def main() -> int:
                            "writing m and l)",
                      note="launches from the sd21 bf16 inversion; library_ms is SDPA "
                           "forward in bf16"),
-        *(kernel_entry(f"flash_attn_bwd_{p}_d64{sfx}", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
+        *(kernel_entry(f"flash_attn_bwd_{p}_d64{sfx}", f"p2p_tpu_torch/csrc/{source}.cu",
                        "p2p_tpu/models/nn.py:308", dims[f"K4 {p} {dt} d=64"],
                        rows[f"K4_{p}"],
-                       units=(f"tensor cores, {'bf16' if sfx else '3xTF32'} "
-                              f"(flash_bwd_{p}{sfx}_kernel<64>)"),
+                       units=(f"tensor cores, bf16: wgmma fed by TMA "
+                              f"(flash_bwd_{p}_sm90_kernel)" if sfx else
+                              f"tensor cores, 3xTF32 (flash_bwd_{p}_kernel<64>)"),
                        note=f"K4's {p} pass at d = 64, the SD-2.1 inversion's gradient "
                             f"sites (768-v and 512-base shapes); launches from the sd21 "
                             f"{dt} inversion; library_ms is SDPA's backward alone in "
-                            f"{dt}, sdpa_fwd_bwd_ms its forward and backward")
-          for sfx, dt, dims, rows in (("", "f32", dims_inv21, k34_d64),
-                                      ("_bf16", "bf16", dims_inv21_16, k34_d64_bf16))
+                            f"{dt}, sdpa_fwd_bwd_ms its forward and backward; graph_ms "
+                            f"and library_graph_ms the pass and SDPA's backward alone "
+                            f"replayed as CUDA graphs",
+                       **({"sass": sass_bwd} if sfx else {}))
+          for sfx, dt, dims, rows, source in (
+              ("", "f32", dims_inv21, k34_d64, "flash_attn_bwd"),
+              ("_bf16", "bf16", dims_inv21_16, k34_d64_bf16, "flash_bwd_sm90"))
           for p in ("dkv", "dq")),
         kernel_entry("fused_edit_d64", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", c21["fused_edit"], k2_d64,

@@ -1,5 +1,7 @@
 // K4: flash attention backward, non-causal, unmasked, f32 in and out, and
-// the same two passes on bf16 operands (below, after the f32 kernels).
+// the same two passes on bf16 operands at d = 40 (below, after the f32
+// kernels); bf16 at d = 64 runs on Hopper's wgmma and TMA in
+// flash_bwd_sm90.cu.
 //
 // Replaces the JAX library's flash backward that `jax.grad` runs through
 // `flash_attention_tpu` (p2p_tpu/models/nn.py:308-340): the Pallas kernels
@@ -9,8 +11,8 @@
 // iteration at the U-Net's self sites of 2048 pixels or more: SD-1.4's
 // 64x64-pixel sites, (1, 8, 4096, 40), and SD-2.1's at head dim 64, (1, 5,
 // 9216, 64) and (1, 10, 2304, 64) at 768-v and (1, 5, 4096, 64) at 512-base.
-// The head dim is a template parameter, instantiated at 40 and 64; each C
-// entry dispatches on it.
+// The head dim is a template parameter, instantiated at 40 and 64 in f32 and
+// at 40 in bf16; each C entry dispatches on it.
 //
 // Inputs: q, do (bh, sq, d); k, v (bh, sk, d); the forward's residuals m and
 // l (bh, sq) from K3; and di = sum_c o * do (bh, sq), computed by the wrapper
@@ -384,8 +386,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ----------------------------------------------------------------- bf16
 //
-// The same two passes on bf16 q, k, v and do (f32 m, l, di; bf16 dq, dk,
-// dv), one bf16 tensor-core product a term with f32 accumulation
+// The same two passes on bf16 q, k, v and do at d = 40 (f32 m, l, di; bf16
+// dq, dk, dv), one bf16 tensor-core product a term with f32 accumulation
 // (attn_bf16.cuh: mma.sync m16n8k16, and m16n8k8 for the head dim's last 8
 // columns; operands read by ldmatrix). They round where the JAX library's
 // kernels round (flash_attention.py:895-938 and :1237-1283): p = exp(s -
@@ -395,19 +397,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // f32 kernels' scale at the end would round elsewhere); the f32 sums
 // rounded to bf16 once, when stored. Tiles are 64 x D bf16 with rows of an
 // odd number of 16-byte chunks, so ldmatrix reads them without bank
-// conflicts: five at d = 40 (row stride 40), nine at d = 64 (64 padded to
-// 72). The warp's own 16 rows of the tile that stays (K and V in dkv, Q and
-// dO in dq) are A fragments in registers, held for the whole walk at
-// d = 40 and in dq; at d = 64 dkv loads them again for each query tile,
-// since held beside dK, dV, p^T and ds^T they would take an estimated ~240
-// registers.
+// conflicts: five at d = 40 (row stride 40). The warp's own 16 rows of the
+// tile that stays (K and V in dkv, Q and dO in dq) are A fragments in
+// registers, held for the whole walk.
 // The streamed tiles give B fragments, and the C fragments of s^T and ds^T
 // (s and ds) are packed into the A fragments of the next product without
 // leaving registers. Each tile's product is summed in its own accumulator
-// and added in f32. About 32 KB of shared memory a block at d = 40, 56 KB
-// at d = 64. Bound (the products at 989 TFLOP/s; dkv four, dq three): at
-// (1, 8, 4096, 40), SD-1.4's gradient sites, dkv 0.043 ms, dq 0.033 ms; at
-// (1, 5, 9216, 64), SD-2.1 768-v's largest, dkv 0.220 ms, dq 0.165 ms.
+// and added in f32. About 32 KB of shared memory a block. Bound (the
+// products at 989 TFLOP/s; dkv four, dq three): at (1, 8, 4096, 40),
+// SD-1.4's gradient sites, dkv 0.043 ms, dq 0.033 ms.
 namespace b16 {
 template <int D>
 struct Geo {
@@ -416,7 +414,6 @@ struct Geo {
   static constexpr int NO = D / 8;       // n-tiles of a product over the head dim
   static constexpr int KS = D / 16;      // k16 steps over the head dim
   static constexpr bool TAIL = D % 16 == 8;  // and a last k8 step
-  static constexpr bool HOLD_DKV = D <= 40;  // dkv holds its rows' A fragments
   static constexpr size_t DKV_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 7 * BR;
   static constexpr size_t DQ_SMEM = sizeof(bf16) * 6 * TILEB + sizeof(float) * 3 * BR;
 };
@@ -571,10 +568,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   cp_async_wait<0>();
   __syncthreads();
   RowsA<D> ka, va;
-  if constexpr (G::HOLD_DKV) {
-    load_rows_a(ka, Ks + w0 * LDB);
-    load_rows_a(va, Vs + w0 * LDB);
-  }
+  load_rows_a(ka, Ks + w0 * LDB);
+  load_rows_a(va, Vs + w0 * LDB);
 
   float dK[NO][4], dV[NO][4];
 #pragma unroll
@@ -606,7 +601,6 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // p^T = exp(scale * k q^T - lse): keys are rows, queries columns.
     float p[NRT][4], ds[NRT][4];
-    if constexpr (!G::HOLD_DKV) load_rows_a(ka, Ks + w0 * LDB);
     product_nt(p, ka, Qt);
 #pragma unroll
     for (int n = 0; n < NRT; ++n) {
@@ -616,7 +610,6 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
     product_cy<D>(dV, p, dOt);
     // ds^T = (v do^T - di) * p^T * scale, rounded to bf16 by product_cy.
-    if constexpr (!G::HOLD_DKV) load_rows_a(va, Vs + w0 * LDB);
     product_nt(ds, va, dOt);
 #pragma unroll
     for (int n = 0; n < NRT; ++n) {
@@ -729,26 +722,33 @@ int launch(const void* kern, size_t smem, dim3 grid, void** args,
   return cudaGetLastError();
 }
 
-// Launch the dk/dv pass (dkv) or the dq pass on f32 or bf16 operands at
-// head dim D, over `tiles` row tiles of each of bh heads.
+// Launch the dk/dv pass (dkv) or the dq pass on f32 operands at head dim D,
+// over `tiles` row tiles of each of bh heads.
 template <int D>
-int launch_pass(bool dkv, bool bf16_ops, int tiles, int bh, void** args, void* stream) {
-  const void* kern =
-      bf16_ops ? (dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_bf16_kernel<D>)
-                      : reinterpret_cast<const void*>(flash_bwd_dq_bf16_kernel<D>))
-               : (dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_kernel<D>)
-                      : reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>));
-  const size_t smem = bf16_ops ? (dkv ? b16::Geo<D>::DKV_SMEM : b16::Geo<D>::DQ_SMEM)
-                               : (dkv ? F32<D>::DKV_SMEM : F32<D>::DQ_SMEM);
-  return launch(kern, smem, dim3(tiles, bh), args, static_cast<cudaStream_t>(stream));
+int launch_f32(bool dkv, int tiles, int bh, void** args, void* stream) {
+  const void* kern = dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_kernel<D>)
+                         : reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>);
+  return launch(kern, dkv ? F32<D>::DKV_SMEM : F32<D>::DQ_SMEM, dim3(tiles, bh), args,
+                static_cast<cudaStream_t>(stream));
 }
 
-// launch_pass at head dim d; cudaErrorInvalidValue for a head dim without
-// kernels.
+// The same on bf16 operands.
+template <int D>
+int launch_bf16(bool dkv, int tiles, int bh, void** args, void* stream) {
+  const void* kern = dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_bf16_kernel<D>)
+                         : reinterpret_cast<const void*>(flash_bwd_dq_bf16_kernel<D>);
+  return launch(kern, dkv ? b16::Geo<D>::DKV_SMEM : b16::Geo<D>::DQ_SMEM, dim3(tiles, bh),
+                args, static_cast<cudaStream_t>(stream));
+}
+
+// The pass at head dim d: f32 at 40 and 64, bf16 at 40 (bf16 at 64 is
+// flash_bwd_sm90.cu's); cudaErrorInvalidValue for any other.
 int dispatch(bool dkv, bool bf16_ops, int d, int tiles, int bh, void** args,
              void* stream) {
-  if (d == 40) return launch_pass<40>(dkv, bf16_ops, tiles, bh, args, stream);
-  if (d == 64) return launch_pass<64>(dkv, bf16_ops, tiles, bh, args, stream);
+  if (bf16_ops)
+    return d == 40 ? launch_bf16<40>(dkv, tiles, bh, args, stream) : cudaErrorInvalidValue;
+  if (d == 40) return launch_f32<40>(dkv, tiles, bh, args, stream);
+  if (d == 64) return launch_f32<64>(dkv, tiles, bh, args, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -780,7 +780,8 @@ extern "C" int p2p_flash_attn_bwd_dq(const float* q, const float* k,
 }
 
 // The bf16 passes: q, k, v, dout and the outputs bf16 with the shapes
-// above; m, l and di f32. Returns a cudaError_t (0 on success).
+// above; m, l and di f32; d = 40 only. Returns a cudaError_t (0 on
+// success).
 extern "C" int p2p_flash_attn_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                            const void* dout, const float* m,
                                            const float* l, const float* di, void* dk,

@@ -62,7 +62,6 @@
 // - Grid (query tiles of 128 rows, B*H), 384 threads, one block an SM.
 //
 // No atomics: two launches give the same bits.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +69,7 @@
 #include <type_traits>
 
 #include "attn_bf16.cuh"  // pack_bf16, exp2_ftz, smem_u32
+#include "sm90.cuh"       // mbarriers, TMA, wgmma, the tensor-map encoder
 
 using namespace p2p;
 
@@ -92,134 +92,6 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 static_assert((PRODUCER_REGS + NC * CONSUMER_REGS) * 128 <= 65536, "register file");
 constexpr float LOG2E = 1.4426950408889634f;
-
-// --------------------------------------------------------------- mbarriers
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-// Wait until the barrier's phase of this parity has completed. A phase that
-// has not completed after 2^35 clocks (some 17 s) means a load was lost:
-// trap, so the launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
-// --------------------------------------------------------------------- TMA
-
-// The map's box at (0, row, bh) into shared memory at dst, completing
-// its bytes on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
-      : "memory");
-}
-
-// ------------------------------------------------------------------- wgmma
-
-// Descriptor of a tile in shared memory laid out as TMA's 128-byte swizzle
-// writes it (rows of 128 bytes, 8-row atoms of 1024 bytes, 1024-aligned):
-// start address, leading and stride byte offsets (16-byte units), layout 1
-// (128-byte swizzle). K-major (Q, K): the stride offset steps 8 rows, the
-// leading one is unused (a k16 step lies inside one swizzle row; 1 by
-// convention). MN-major (V as B of P V, N = 64 = one swizzle row): the stride
-// offset steps 8 keys; the leading one, which would step 64 columns, is
-// unused at N = 64 and is given the same 1024 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo16) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo16 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses of registers an in-flight wgmma owns
-// across the points where the program hands them over.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define P2P_F8(a, i)                                                                  \
-  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]), "+f"(a[i + 4]),         \
-      "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
-
-// d (64 x N, f32) = [d +] A (64 x 16) B (16 x N), A and B K-major in shared
-// memory: N = 64, 96 or 128 (32, 48 or 64 accumulators a thread).
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : P2P_F8(d, 0), P2P_F8(d, 8), P2P_F8(d, 16), P2P_F8(d, 24), P2P_F8(d, 32), P2P_F8(d, 40), P2P_F8(d, 48), P2P_F8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64), B
-// MN-major in shared memory.
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : P2P_F8(d, 0), P2P_F8(d, 8), P2P_F8(d, 16), P2P_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef P2P_F8
 
 // ------------------------------------------------------------------ kernel
 
@@ -286,9 +158,9 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int c = wg;
     const int tw = threadIdx.x & 127, w = tw >> 5, lane = tw & 31;
     const int g = lane >> 2, t = lane & 3;
-    const uint64_t dq = desc_sw128(q_s + c * BM * ROW_BYTES, 1);
-    auto dk = [&](int s) { return desc_sw128(k_s + s * TILE_BYTES, 1); };
-    auto dv = [&](int s) { return desc_sw128(v_s + s * TILE_BYTES, 1024 >> 4); };
+    const uint64_t dq = desc_sw128(q_s + c * BM * ROW_BYTES, LBO_K_MAJOR);
+    auto dk = [&](int s) { return desc_sw128(k_s + s * TILE_BYTES, LBO_K_MAJOR); };
+    auto dv = [&](int s) { return desc_sw128(v_s + s * TILE_BYTES, LBO_MN_MAJOR); };
 
     float sc[SN];         // S of the current tile, then its p = 2^(s - m2)
     float acc[32];        // O, unnormalized
@@ -305,14 +177,14 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto issue_qk = [&](int s) {
       const uint64_t db = dk(s);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) wgmma_qk(sc, dq + 2 * ks, db + 2 * ks, ks);
+      for (int ks = 0; ks < D / 16; ++ks) wgmma_ss_n128(sc, dq + 2 * ks, db + 2 * ks, ks);
       wgmma_commit();
     };
     // O += P V of the tile in stage s, eight k16 steps of 16 keys (2048 bytes).
     auto issue_pv = [&](int s) {
       const uint64_t db = dv(s);
 #pragma unroll
-      for (int ks = 0; ks < BN / 16; ++ks) wgmma_pv(acc, pk + 4 * ks, db + 128 * ks);
+      for (int ks = 0; ks < BN / 16; ++ks) wgmma_rs_n64(acc, pk + 4 * ks, db + 128 * ks);
       wgmma_commit();
     };
     // The online softmax of tile j's scores: with a true mask (the last
@@ -442,47 +314,6 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ------------------------------------------------------------------- host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a contiguous (bh, rows, 64) bf16 tensor: dims (64, rows, bh),
-// box (64, box_rows, 1), 128-byte swizzle, out-of-bounds rows read as zeros.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows, int bh,
-            int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)ROW_BYTES, (cuuint64_t)rows * ROW_BYTES};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // The signature of p2p_flash_attn_fwd_bf16 (flash_attn.cu), for d = 64 only:
@@ -499,8 +330,8 @@ extern "C" int p2p_flash_attn_fwd_bf16_sm90(const void* q, const void* k, const 
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, q, sq, bh, ROWS) || !encode(fn, &tk, k, sk, bh, BN) ||
-      !encode(fn, &tv, v, sk, bh, BN))
+  if (!encode_rows64(fn, &tq, q, sq, bh, ROWS) || !encode_rows64(fn, &tk, k, sk, bh, BN) ||
+      !encode_rows64(fn, &tv, v, sk, bh, BN))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_d64_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);

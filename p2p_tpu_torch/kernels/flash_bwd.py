@@ -22,7 +22,15 @@ round — ``p`` to bf16 before ``dv += pᵀ·do``, ``ds = (dp − di)·p·scale`
 to bf16 after the scale before ``dk += dsᵀ·q`` and ``dq += ds·k``, the
 sums once at the end. The plain passes round at the same points (the
 identity in f32, where the scale stays at the end as the f32 kernels take
-it). bf16 launches count apart, in ``.bf16_launches``.
+it). At d = 64, SD-2.1's head dim, the bf16 passes are
+``flash_bwd_dkv_sm90_kernel`` and ``flash_bwd_dq_sm90_kernel``
+(``csrc/flash_bwd_sm90.cu``, a library of its own): Hopper's ``wgmma`` fed
+by TMA, 128 rows a block, the other side streamed (64 queries a tile in
+dk/dv, 128 keys in dq), the products summed in the ``wgmma`` accumulator
+across tiles; these rounding
+points do not depend on the tile, so the plain passes are their yardstick
+too. :func:`entry_for` picks each pass's C entry. bf16 launches count
+apart, in ``.bf16_launches``.
 
 On CPU tensors each pass's wrapper (:func:`flash_attention_bwd_dkv`,
 :func:`flash_attention_bwd_dq`) runs its plain version; on CUDA tensors it
@@ -107,17 +115,35 @@ def flash_attention_bwd_plain(q, k, v, o, do, l, m, scale: float):
     return flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale), dk, dv
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("flash_attn_bwd")
-    for suffix in ("", "_bf16"):
-        dkv = getattr(lib, "p2p_flash_attn_bwd_dkv" + suffix)
-        dq = getattr(lib, "p2p_flash_attn_bwd_dq" + suffix)
-        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+#: The library of each backward C entry: bf16 at d = 64 runs on Hopper's
+#: wgmma and TMA in a library of its own.
+ENTRIES = {f"p2p_flash_attn_bwd_{p}{sfx}": lib for p in ("dkv", "dq")
+           for sfx, lib in (("", "flash_attn_bwd"), ("_bf16", "flash_attn_bwd"),
+                            ("_bf16_sm90", "flash_bwd_sm90"))}
+_BACKWARD: dict = {}
+
+
+def entry_for(pass_: str, dtype: torch.dtype, d: int) -> str:
+    """The C entry of K4's ``pass_`` (``"dkv"`` or ``"dq"``) that runs
+    ``dtype`` at head dim ``d``."""
+    sfx = "" if dtype != torch.bfloat16 else "_bf16_sm90" if d == 64 else "_bf16"
+    return f"p2p_flash_attn_bwd_{pass_}{sfx}"
+
+
+def backward_entry(entry: str):
+    """``(library, function)`` of a backward C entry, its argument types set
+    once: q, k, v, do, m, l, di, the outputs (dk and dv, or dq); bh, sq, sk,
+    d; scale, stream."""
+    found = _BACKWARD.get(entry)
+    if found is None:
+        lib = build.library(ENTRIES[entry])
+        fn = getattr(lib, entry)
+        outs = 2 if "_dkv" in entry else 1
+        fn.argtypes = [ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_void_p]
-        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        dkv.restype = dq.restype = ctypes.c_int
-    return lib
+        fn.restype = ctypes.c_int
+        found = _BACKWARD[entry] = (lib, fn)
+    return found
 
 
 def _check(what, q, k, v, do, l, m, di):
@@ -140,6 +166,23 @@ def _check(what, q, k, v, do, l, m, di):
     return b * h, sq, sk, d
 
 
+def _launch(wrapper, pass_: str, operands, outs, scale: float) -> None:
+    """One launch of ``pass_``'s C entry for the operands' dtype and head dim
+    (:func:`entry_for`) into ``outs``, counted on ``wrapper``."""
+    q, k, v, do, l, m, di = operands
+    bh, sq, sk, d = _check(wrapper.__name__, *operands)
+    entry = entry_for(pass_, q.dtype, d)
+    lib, fn = backward_entry(entry)
+    status = fn(*(t.data_ptr() for t in (q, k, v, do, m, l, di, *outs)), bh, sq, sk, d,
+                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, status, entry)
+    if q.dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
+    else:
+        wrapper.launches += 1
+    _count_head_dim(wrapper, q)
+
+
 def flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale: float):
     """K4's dk/dv pass: ``(dk, dv)`` from q/do ``(B, H, Sq, D)``, k/v
     ``(B, H, Sk, D)``, K3's residuals ``l``, ``m`` and ``di = Σ o·do``
@@ -147,21 +190,8 @@ def flash_attention_bwd_dkv(q, k, v, do, l, m, di, scale: float):
     in their dtype), ``l``, ``m`` and ``di`` f32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
-    bh, sq, sk, d = _check("flash_attention_bwd_dkv", q, k, v, do, l, m, di)
-    bf16 = q.dtype == torch.bfloat16
-    entry = "p2p_flash_attn_bwd_dkv" + ("_bf16" if bf16 else "")
-    lib = _lib()
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    status = getattr(lib, entry)(
-        *(t.data_ptr() for t in (q, k, v, do, m, l, di, dk, dv)), bh, sq, sk, d,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, status, entry)
-    if bf16:
-        flash_attention_bwd_dkv.bf16_launches += 1
-    else:
-        flash_attention_bwd_dkv.launches += 1
-    _count_head_dim(flash_attention_bwd_dkv, q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(flash_attention_bwd_dkv, "dkv", (q, k, v, do, l, m, di), (dk, dv), scale)
     return dk, dv
 
 
@@ -169,20 +199,8 @@ def flash_attention_bwd_dq(q, k, v, do, l, m, di, scale: float):
     """K4's dq pass: ``dq`` from the same operands as the dk/dv pass."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale)
-    bh, sq, sk, d = _check("flash_attention_bwd_dq", q, k, v, do, l, m, di)
-    bf16 = q.dtype == torch.bfloat16
-    entry = "p2p_flash_attn_bwd_dq" + ("_bf16" if bf16 else "")
-    lib = _lib()
     dq = torch.empty_like(q)
-    status = getattr(lib, entry)(
-        *(t.data_ptr() for t in (q, k, v, do, m, l, di, dq)), bh, sq, sk, d,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, status, entry)
-    if bf16:
-        flash_attention_bwd_dq.bf16_launches += 1
-    else:
-        flash_attention_bwd_dq.launches += 1
-    _count_head_dim(flash_attention_bwd_dq, q)
+    _launch(flash_attention_bwd_dq, "dq", (q, k, v, do, l, m, di), (dq,), scale)
     return dq
 
 

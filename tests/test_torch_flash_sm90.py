@@ -102,14 +102,19 @@ def test_forward_entry_by_dtype_and_head_dim(dtype, d, entry, library):
 
 
 def test_sm90_source_runs_on_wgmma_and_tma():
-    """The d = 64 bf16 kernel is written on Hopper's instructions, and the
-    parent's mma.sync kernel is gone."""
+    """The d = 64 bf16 kernel is written on Hopper's instructions (in its
+    source and the header of them, shared with K4's sm90 passes, that it
+    includes), and the parent's mma.sync kernel is gone."""
     src = (build.CSRC / "flash_fwd_sm90.cu").read_text()
+    assert '#include "sm90.cuh"' in src
+    text = src + (build.CSRC / "sm90.cuh").read_text()
     for needle in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
                    "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
                    "cp.async.bulk.tensor.3d", "CU_TENSOR_MAP_SWIZZLE_128B",
                    "setmaxnreg", "__grid_constant__"):
-        assert needle in src, needle
-    assert "mma.sync" not in src
+        assert needle in text, needle
+    for call in ("wgmma_ss_n128(", "wgmma_rs_n64(", "tma_load(", "mbar_wait("):
+        assert call in src, call
+    assert "mma.sync" not in text
     for path in build.CSRC.glob("*.cu"):
         assert "flash_d64_bf16_kernel" not in path.read_text(), path

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""K1 and K3 in bf16 at head dim 64 from another checkout's
-``p2p_tpu_torch/csrc/flash_attn.cu`` (its ``p2p_flash_attn_fwd_bf16``)
-against this checkout's ``p2p_flash_attn_fwd_bf16_sm90``
-(``csrc/flash_fwd_sm90.cu``), on the card, on the same inputs.
+"""K1 and K3 in bf16 at head dim 64 from another checkout against this
+checkout's ``p2p_flash_attn_fwd_bf16_sm90`` (``csrc/flash_fwd_sm90.cu``),
+on the card, on the same inputs: the other checkout's
+``p2p_flash_attn_fwd_bf16_sm90`` where it has that source (then held bit
+for bit), else its ``csrc/flash_attn.cu``'s ``p2p_flash_attn_fwd_bf16``.
 
     python tools/k1_compare.py OTHER_CHECKOUT
 
@@ -12,9 +13,10 @@ checkout's ``nvcc`` flags into ``build/p2p_tpu_torch/``. Shapes: K1 at
 (4, 5, 9216, 64), (4, 10, 2304, 64) and (4, 5, 4096, 64), K3 (``m`` and
 ``l`` too) at (1, 5, 9216, 64), (1, 10, 2304, 64) and (1, 5, 4096, 64).
 Each pair of outputs is held within ``BF16_TOL`` of the other's largest
-magnitude (not bitwise: the key tile moves where P rounds), ``m`` and ``l``
-within ``TC_TOL`` relative, and each output against the plain version within
-the same bars. The two are timed in turns (other, this, this, other) beside
+magnitude (against the mma.sync kernel not bitwise: the key tile moves
+where P rounds), ``m`` and ``l`` within ``TC_TOL`` relative, and each
+output against the plain version within the same bars; against another
+sm90 kernel also bit for bit. The two are timed in turns (other, this, this, other) beside
 SDPA in bf16 and the bound. Then d = 40, which stays on the ``mma.sync``
 kernel: both checkouts' ``p2p_flash_attn_fwd_bf16`` at (1, 8, 4096, 40),
 ``m`` and ``l`` too, bit for bit; then the host's µs a call at a shape
@@ -76,15 +78,16 @@ def wrapper_us(checkout: str) -> float:
     return float(out.stdout.split()[-1])
 
 
-def other_entry(checkout: str):
-    """The other checkout's bf16 forward entry, built here, typed."""
-    out = build.BUILD_DIR / "libflash_attn-other.so"
+def other_entry(checkout: str, name: str, entry: str):
+    """The other checkout's bf16 forward ``entry`` of ``csrc/<name>.cu``,
+    built here, typed."""
+    out = build.BUILD_DIR / f"lib{name}-other.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([build._nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-o", str(out),
-                    os.path.join(checkout, "p2p_tpu_torch/csrc/flash_attn.cu")],
+                    os.path.join(checkout, f"p2p_tpu_torch/csrc/{name}.cu")],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
-    fn = lib.p2p_flash_attn_fwd_bf16
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -98,9 +101,15 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("k1_compare: no CUDA device is visible", file=sys.stderr)
         return 2
-    entries = {"other": other_entry(argv[1]),
+    # Bit for bit at d = 64 only against another sm90 kernel.
+    bitwise64 = os.path.exists(os.path.join(argv[1], "p2p_tpu_torch/csrc/flash_fwd_sm90.cu"))
+    entries = {"other": (other_entry(argv[1], "flash_fwd_sm90", "p2p_flash_attn_fwd_bf16_sm90")
+                         if bitwise64 else
+                         other_entry(argv[1], "flash_attn", "p2p_flash_attn_fwd_bf16")),
+               "other_d40": other_entry(argv[1], "flash_attn", "p2p_flash_attn_fwd_bf16"),
                "this": flash.forward_entry("p2p_flash_attn_fwd_bf16_sm90"),
                "this_d40": flash.forward_entry("p2p_flash_attn_fwd_bf16")}
+    same64 = True
     card = cs.card_line()
     print(card)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -148,6 +157,9 @@ def main(argv) -> int:
                     bad.append(f"{tag} {what} {key}: {e:.3g} > {tol}")
             if not torch.equal(this, again[i]):
                 bad.append(f"{tag} {what}: two launches differ")
+            if bitwise64 and not torch.equal(this, other):
+                same64 = False
+                bad.append(f"{tag} {what}: not bit for bit the other sm90 kernel's")
         times = {"other": [], "this": []}
         iters = 10 if s == 9216 else 20
         for name in ("other", "this", "this", "other"):
@@ -175,14 +187,17 @@ def main(argv) -> int:
     same40 = True
     for k3 in (False, True):
         d40 = {}
-        for name in ("other", "this_d40"):
+        for name in ("other_d40", "this_d40"):
             res = [torch.empty(shape[:3], device="cuda") for _ in range(2)] if k3 else [None] * 2
             d40[name] = (torch.empty_like(q), *res)
             call(name, q, k, v, *d40[name], shape[2])
         same40 &= all(a is None or torch.equal(a, b)
-                      for a, b in zip(d40["other"], d40["this_d40"]))
+                      for a, b in zip(d40["other_d40"], d40["this_d40"]))
     print(f"K1 and K3 bf16 d=40 {shape}: out (and m, l) bitwise equal to the other "
           f"checkout's: {same40}")
+    if bitwise64:
+        print(f"K1 and K3 bf16 d=64, the six shapes: out (and m, l) bitwise equal to the "
+              f"other checkout's sm90 kernel: {same64}")
     if not same40:
         bad.append("d = 40: outputs differ from the other checkout's")
 
@@ -217,7 +232,8 @@ def main(argv) -> int:
           ", ".join(f"{n} {us:.2f}" for n, us in host.items()))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "k1_compare.json"), "w") as f:
-        json.dump({"card": card, "rows": rows, "d40_bitwise": same40, "host_us": host,
+        json.dump({"card": card, "rows": rows, "d40_bitwise": same40,
+                   "d64_bitwise": same64 if bitwise64 else None, "host_us": host,
                    "failures": bad}, f, indent=1)
     for line in bad:
         print("FAIL", line)
