@@ -508,40 +508,95 @@ def sdpa_times(torch, F, q, k, v, do, scale: float, iters: int):
     return bwd, cuda_ms(torch, fwd_bwd, iters)
 
 
-#: The libraries written on Hopper's own instructions (wgmma, TMA).
-SM90_LIBRARIES = ("flash_fwd_sm90", "flash_bwd_sm90")
+#: The libraries written on Hopper's own instructions (wgmma, TMA), each
+#: with its kernels' instantiations: "name" or "name<head dim>".
+SM90_LIBRARIES = {"flash_fwd_sm90": ("flash_d64_sm90_kernel",),
+                  "flash_bwd_sm90": tuple(f"flash_bwd_{p}_sm90_kernel<{d}>"
+                                          for p in ("dkv", "dq") for d in (40, 64))}
+
+
+def kernel_instance(symbol: str):
+    """``"name"`` or ``"name<d>"`` of a kernel's symbol as ptxas or
+    cuobjdump print it (mangled, ``...name_kernelILi40EE...``, or
+    demangled, ``name_kernel<40>``); None for a symbol of no kernel."""
+    import re
+
+    found = re.search(r"_kernel(?:ILi(\d+)E|<(\d+)>)?", symbol)
+    start = symbol.rfind("flash_", 0, found.start()) if found else -1
+    if start < 0:
+        return None
+    d = found.group(1) or found.group(2)
+    return symbol[start:found.start()] + "_kernel" + (f"<{d}>" if d else "")
 
 
 def sm90_sass(build, library: str) -> dict:
     """Instruction counts in the SASS of a built library of
-    ``SM90_LIBRARIES`` (``cuobjdump -sass``): raises unless its kernels run
-    on Hopper's wgmma (HGMMA) fed by TMA (UTMALDG), with no ``mma.sync``
-    (HMMA)."""
+    ``SM90_LIBRARIES`` (``cuobjdump -sass``), in all and by kernel
+    instantiation (``by_kernel``): raises unless it holds exactly the
+    instantiations listed there and each runs on Hopper's wgmma (HGMMA) fed
+    by TMA (UTMALDG), with no ``mma.sync`` (HMMA)."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(library))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass))
-              for op in ("HGMMA", "UTMALDG", "HMMA", "MUFU.EX2")}
+    ops = ("HGMMA", "UTMALDG", "HMMA", "MUFU.EX2")
+
+    def count(text):
+        return {op: len(re.findall(rf"\b{op}\b", text)) for op in ops}
+
+    parts = re.split(r"Function : (\S+)", sass)
+    by_kernel = {kernel_instance(name): count(body)
+                 for name, body in zip(parts[1::2], parts[2::2])}
+    counts = {**count(sass), "by_kernel": by_kernel}
     print(f"{library} SASS: {counts}")
-    if not counts["HGMMA"] or not counts["UTMALDG"] or counts["HMMA"]:
-        raise RuntimeError(f"{library} is not on wgmma and TMA: {counts}")
+    if sorted(by_kernel) != sorted(SM90_LIBRARIES[library]):
+        raise RuntimeError(f"{library}: kernels {sorted(by_kernel)}, expected "
+                           f"{sorted(SM90_LIBRARIES[library])}")
+    for name, c in by_kernel.items():
+        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+            raise RuntimeError(f"{library} {name} is not on wgmma and TMA: {c}")
     return counts
 
 
-def check_no_spills(report: dict) -> None:
-    """Raise if ptxas spilled in a freshly built library of
-    ``SM90_LIBRARIES``: their wgmma accumulators live in registers."""
+def ptxas_kernels(text: str) -> dict:
+    """``{instantiation: {"registers": n, "spill_bytes": n}}`` from the
+    ``-Xptxas -v`` report of a build."""
     import re
 
-    for name in SM90_LIBRARIES:
+    out = {}
+    for block in re.split(r"Compiling entry function ", text)[1:]:
+        name = kernel_instance(block.split()[0])
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", block)
+        if name is not None:
+            out[name] = {"registers": int(regs.group(1)) if regs else None,
+                         "spill_bytes": sum(int(n) for n in spills)}
+    return out
+
+
+def check_no_spills(report: dict) -> dict:
+    """Raise if ptxas spilled in a freshly built library of
+    ``SM90_LIBRARIES`` (their wgmma accumulators live in registers), or if
+    its report lacks one of the library's instantiations. Returns each
+    instantiation's registers and spilled bytes."""
+    import re
+
+    kernels = {}
+    for name, expected in SM90_LIBRARIES.items():
         if name not in report:
             continue
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
-                                             report[name]["ptxas"])]
+        text = report[name]["ptxas"]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
         if any(spills):
             raise RuntimeError(f"{name}: ptxas spilled ({spills} bytes)")
+        found = ptxas_kernels(text)
+        missing = [k for k in expected if k not in found]
+        if missing:
+            raise RuntimeError(f"{name}: no ptxas report of {missing}")
+        kernels.update(found)
+    print(f"sm90 kernels, registers and spilled bytes: {kernels}")
+    return kernels
 
 
 def sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale: float, iters: int) -> float:
@@ -887,11 +942,12 @@ def k34_phases(torch, K, F):
 def k34_bf16_phases(torch, K, F):
     """K3 and both K4 passes in bf16 at the U-Net 64² self sites under the
     bf16 inversion's gradient, (1, 8, 4096, 40), then at the ragged lengths
-    S = 4100 and Sq = 300 with Sk = 70: outputs and gradients within
-    ``BF16_TOL`` of the bf16 plain versions' largest magnitude, K3's f32
-    ``m`` and ``l`` within ``TC_TOL`` relative, each bitwise across two
-    launches. The K4 passes take the plain forward's residuals. SDPA in
-    bf16 is the yardstick: forward for K3, the backward alone for K4 (with
+    S = 4100, Sq = 300 with Sk = 70 and Sq = 70 with Sk = 300: outputs and
+    gradients within ``BF16_TOL`` of the bf16 plain versions' largest
+    magnitude (K4: flash_bwd_{dkv,dq}_sm90_kernel<40>), K3's f32 ``m`` and
+    ``l`` within ``TC_TOL`` relative, each bitwise across two launches.
+    The K4 passes take the plain forward's residuals. SDPA in bf16 is the
+    yardstick: forward for K3, the backward alone for K4 (with
     forward and backward together in ``sdpa_fwd_bwd_ms``); K4 and SDPA's
     backward also as replayed CUDA graphs (``graph_ms``,
     ``library_graph_ms``), since SDPA's eager backward at this shape reads
@@ -900,7 +956,7 @@ def k34_bf16_phases(torch, K, F):
     bf16 = torch.bfloat16
     rows = {}
     for shape_q, sk in (((1, 8, 4096, 40), 4096), ((1, 2, 4100, 40), 4100),
-                        ((1, 2, 300, 40), 70)):
+                        ((1, 2, 300, 40), 70), ((1, 2, 70, 40), 300)):
         b, h, sq, d = shape_q
         q, do = (torch.randn(shape_q, generator=gen, device="cuda").to(bf16)
                  for _ in range(2))
@@ -1474,7 +1530,7 @@ def main() -> int:
             elif "registers" not in line and "spill" not in line:
                 continue
             print(f"  {name}: {line.strip()}")
-    check_no_spills(report)
+    sm90_ptxas = check_no_spills(report)
 
     from p2p_tpu_torch import random_pipeline
     from p2p_tpu_torch.kernels.flash import d40_occupancy
@@ -1590,22 +1646,17 @@ def main() -> int:
                      units="tensor cores, bf16 (flash_d40_bf16_kernel writing m and l)",
                      note="launches from the bf16 inversion; library_ms is SDPA "
                           "forward in bf16"),
-        kernel_entry("flash_attn_bwd_dq_bf16", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
-                     "p2p_tpu/models/nn.py:308", inv16_counts["flash_attn_bwd_dq_bf16"],
-                     [k34_bf16["K4_dq"]],
-                     units="tensor cores, bf16 (flash_bwd_dq_bf16_kernel)",
-                     note="launches from the bf16 inversion; library_ms is SDPA's "
-                          "backward alone in bf16, sdpa_fwd_bwd_ms its forward and "
-                          "backward; graph_ms and library_graph_ms the pass and SDPA's "
-                          "backward alone replayed as CUDA graphs"),
-        kernel_entry("flash_attn_bwd_dkv_bf16", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
-                     "p2p_tpu/models/nn.py:308", inv16_counts["flash_attn_bwd_dkv_bf16"],
-                     [k34_bf16["K4_dkv"]],
-                     units="tensor cores, bf16 (flash_bwd_dkv_bf16_kernel)",
-                     note="launches from the bf16 inversion; library_ms is SDPA's "
-                          "backward alone in bf16, sdpa_fwd_bwd_ms its forward and "
-                          "backward; graph_ms and library_graph_ms the pass and SDPA's "
-                          "backward alone replayed as CUDA graphs"),
+        *(kernel_entry(f"flash_attn_bwd_{p}_bf16", "p2p_tpu_torch/csrc/flash_bwd_sm90.cu",
+                       "p2p_tpu/models/nn.py:308", inv16_counts[f"flash_attn_bwd_{p}_bf16"],
+                       [k34_bf16[f"K4_{p}"]],
+                       units=f"tensor cores, bf16: wgmma fed by TMA, 40-column rows in "
+                             f"zero-filled 64-column boxes (flash_bwd_{p}_sm90_kernel<40>)",
+                       note="launches from the bf16 inversion; library_ms is SDPA's "
+                            "backward alone in bf16, sdpa_fwd_bwd_ms its forward and "
+                            "backward; graph_ms and library_graph_ms the pass and SDPA's "
+                            "backward alone replayed as CUDA graphs",
+                       sass=sass_bwd, ptxas=sm90_ptxas.get(f"flash_bwd_{p}_sm90_kernel<40>"))
+          for p in ("dq", "dkv")),
         kernel_entry("window_sum_bf16", "p2p_tpu_torch/csrc/window_sum.cu",
                      "p2p_tpu/models/nn.py:140", inv16_counts["window_sum_bf16"],
                      window_sums,
@@ -1662,7 +1713,9 @@ def main() -> int:
                             f"{dt}, sdpa_fwd_bwd_ms its forward and backward; graph_ms "
                             f"and library_graph_ms the pass and SDPA's backward alone "
                             f"replayed as CUDA graphs",
-                       **({"sass": sass_bwd} if sfx else {}))
+                       **({"sass": sass_bwd,
+                           "ptxas": sm90_ptxas.get(f"flash_bwd_{p}_sm90_kernel<64>")}
+                          if sfx else {}))
           for sfx, dt, dims, rows, source in (
               ("", "f32", dims_inv21, k34_d64, "flash_attn_bwd"),
               ("_bf16", "bf16", dims_inv21_16, k34_d64_bf16, "flash_bwd_sm90"))

@@ -1,34 +1,43 @@
-// K4 in bf16 at head dim 64, on Hopper's own instructions: the dk/dv and dq
-// passes of the flash attention backward on wgmma, TMA and mbarriers, two
-// warpgroups a block.
+// K4 in bf16 at head dims 40 and 64, on Hopper's own instructions: the
+// dk/dv and dq passes of the flash attention backward on wgmma, TMA and
+// mbarriers, two warpgroups a block.
 //
-// Replaces, at d = 64 in bf16, the JAX library's flash backward that
-// `jax.grad` runs through `flash_attention_tpu` (p2p_tpu/models/nn.py:308,
+// Replaces, in bf16, the JAX library's flash backward that `jax.grad` runs
+// through `flash_attention_tpu` (p2p_tpu/models/nn.py:308,
 // `_flash_block_sizes`): the Pallas kernels `_flash_attention_bwd_dkv`
 // (flash_attention.py:941, its `pallas_call` at :1121) and
 // `_flash_attention_bwd_dq` (:1287, `pallas_call` at :1456). On the path:
-// the SD-2.1 bf16 null-text inversion's gradient sites, (1, 5, 9216, 64)
-// and (1, 10, 2304, 64) at 768-v, (1, 5, 4096, 64) at 512-base, once each
-// per site per inner iteration.
+// the bf16 null-text inversion's gradient sites, once each per site per
+// inner iteration: SD-1.4's (1, 8, 4096, 40); SD-2.1's (1, 5, 9216, 64)
+// and (1, 10, 2304, 64) at 768-v, (1, 5, 4096, 64) at 512-base.
 //
-// The function is flash_attn_bwd.cu's bf16 passes' (kernels/flash_bwd.py
-// holds the plain passes): with s = q k^T, lse2 = (m + log l) log2(e) from
-// K3's f32 residuals and di = sum_c o do,
+// The function is that of kernels/flash_bwd.py's plain passes: with
+// s = q k^T, lse2 = (m + log l) log2(e) from K3's f32 residuals and
+// di = sum_c o do,
 //   p = exp2(s scale log2(e) - lse2), rounded to bf16 for dv += p^T do;
 //   ds = (dp - di) p scale, dp = do v^T, rounded to bf16 for dk += ds^T q
 //   and dq += ds k;
 // the sums in f32, rounded to bf16 once when stored. These rounding points
-// do not depend on the tile, so the tiles here round where the earlier
-// d = 64 kernels of flash_attn_bwd.cu did. Each output element is summed by one warpgroup in a fixed
-// order, in the wgmma accumulator across tiles (the bf16 products' bar,
-// 1e-2, is far above the accumulation's rounding toward zero); no atomics,
-// so two launches give the same bits.
+// do not depend on the tile, so the tiles here round where the plain passes
+// do. Each output element is summed by one warpgroup in a fixed order, in
+// the wgmma accumulator across tiles (the bf16 products' bar, 1e-2, is far
+// above the accumulation's rounding toward zero); no atomics, so two
+// launches give the same bits.
 //
 // Bound on an H100 SXM: seven S^2 d products a head (dkv four, dq three) at
-// 989 TFLOP/s, 0.2199 + 0.1649 ms at (1, 5, 9216, 64); the bytes take a
-// hundredth of that. The design, from flash_fwd_sm90.cu's:
+// 989 TFLOP/s, 0.2199 + 0.1649 ms at (1, 5, 9216, 64), 0.0434 + 0.0326 ms
+// at (1, 8, 4096, 40); the bytes take a hundredth of that. The design, from
+// flash_fwd_sm90.cu's:
 //
-// - Loads by TMA: one 3-D tensor map each for q, k, v and do, (64, S, B*H),
+// - Head dim DH, 40 or 64, a template parameter; the shared tiles are 64
+//   columns wide either way. At d = 40 the 40-column rows land in the
+//   64-column box with zeros in columns 40..63 (TMA's out-of-bounds fill),
+//   so the fragment layout, the swizzle, the pipeline and the shared memory
+//   are d = 64's. The products that contract over d (the scores and dp)
+//   run (DH + 15) / 16 k16 steps, 3 at d = 40, since the fourth 16-column
+//   chunk is all zeros; the d-wide accumulators (dK, dV, dQ) stay 64
+//   columns, whose columns past DH come out zero and are not stored.
+// - Loads by TMA: one 3-D tensor map each for q, k, v and do, (DH, S, B*H),
 //   128-byte swizzle, box (64, rows, 1); a tile never reads the next head's
 //   rows, and rows past S arrive as zeros. Each block's own 128 rows (k and
 //   v in dkv, q and do in dq) land once; the other two stream through a
@@ -53,9 +62,9 @@
 //   dv += p^T do of tile j runs while ds^T is formed.
 // - Registers: dK and dV (dkv, 64 a thread) or dQ (32) live across the
 //   loop, with the scores and dp (32 each in dkv, 64 in dq), their bf16
-//   forms and the held rows' A fragments (32): ptxas gives dkv 218 and dq
-//   250, no spills. It allocates a kernel the registers its launch bound
-//   leaves a thread, whatever setmaxnreg adds at run time: 168 beside a
+//   forms and the held rows' A fragments (32 at d = 64, 24 at 40): ptxas
+//   gives dkv 218 and dq 250 at d = 64, no spills. It allocates a kernel
+//   the registers its launch bound leaves a thread, whatever setmaxnreg adds at run time: 168 beside a
 //   producer warp (nine warps, three on one SM sub-partition) or a
 //   producer warpgroup, where dkv spilled and ptxas serialized its wgmma.
 //   With no producer warps the bound leaves 255.
@@ -84,7 +93,7 @@ using namespace p2p;
 
 namespace {
 
-constexpr int D = 64;                   // head dim: one 128-byte row
+constexpr int BOX = 64;                 // columns of a shared row: 128 bytes
 constexpr int BM = 64;                  // rows a warpgroup owns
 constexpr int NC = 2;                   // warpgroups
 constexpr int ROWS = BM * NC;           // rows a block owns
@@ -92,7 +101,7 @@ constexpr int BT_DKV = 64;              // queries of a streamed tile in dkv
 constexpr int BT_DQ = 128;              // keys of a streamed tile in dq
 constexpr int STAGES = 4;               // streamed tiles in flight
 constexpr int NT = 128 * NC;
-constexpr int ROW_BYTES = D * 2;
+constexpr int ROW_BYTES = BOX * 2;
 constexpr int HELD_BYTES = ROWS * ROW_BYTES;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BT_DKV == 64, "dkv's loader warp turns two rows a lane into statistics");
@@ -123,7 +132,9 @@ __device__ __forceinline__ float lse2_of(float m, float l, bool ok) {
 }
 
 // Rows row0 + 16 w + g + 8 h of out (h = 0, 1) = bf16(acc), the thread's
-// share of a 64 x 64 accumulator; rows at or past rows_total skipped.
+// share of the first DH columns of a 64 x 64 accumulator, into rows of DH;
+// rows at or past rows_total skipped.
+template <int DH>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[32],
                                            int row0, int rows_total) {
   const int tw = threadIdx.x & 127, w = tw >> 5, g = (tw & 31) >> 2, t = tw & 3;
@@ -131,9 +142,9 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 16 * w + g + 8 * h;
     if (r >= rows_total) continue;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(out + (size_t)r * D);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(out + (size_t)r * DH);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DH / 8; ++n)
       orow[4 * n + t] = pack_bf16(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
   }
 }
@@ -173,8 +184,16 @@ __device__ __forceinline__ void init_bars(uint64_t* bars, uint32_t full_count) {
 
 // ------------------------------------------------------------------- dk/dv
 
+// The k16 steps of a product that contracts over the head dim DH.
+template <int DH>
+__host__ __device__ constexpr int d_steps() {
+  static_assert(DH % 8 == 0 && DH <= BOX, "a head row fits one 64-column box");
+  return (DH + 15) / 16;
+}
+
 // grid (key tiles of ROWS, bh), NT threads. Warpgroup c owns keys
 // k0 + 64 c + [0, 64).
+template <int DH>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -183,7 +202,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const float* __restrict__ m, const float* __restrict__ l,
                           const float* __restrict__ di, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int sq, int sk, float scale) {
-  constexpr int BT = BT_DKV, SN = BT / 2, TILE_BYTES = BT * ROW_BYTES;
+  constexpr int BT = BT_DKV, SN = BT / 2, TILE_BYTES = BT * ROW_BYTES, KS = d_steps<DH>();
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
   const Smem<TILE_BYTES> sm(smem_raw);  // h0 = K, h1 = V; s0 = Q, s1 = dO
@@ -255,7 +274,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto q_mn = [&](int s) { return desc_sw128(sm.s0 + s * TILE_BYTES, LBO_MN_MAJOR); };
   auto do_mn = [&](int s) { return desc_sw128(sm.s1 + s * TILE_BYTES, LBO_MN_MAJOR); };
 
-  uint32_t ka[16], va[16];  // the warpgroup's K and V rows: A of the scores
+  uint32_t ka[4 * KS], va[4 * KS];  // the warpgroup's K and V rows: A of the scores
   float acc_dk[32], acc_dv[32];
   float st[SN];          // S^T of the tile, then P^T
   float dpt[SN];         // dP^T of the tile, then dS^T
@@ -264,16 +283,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
-  // S^T = K Q^T and dP^T = V dO^T of the tile in stage s, four k16 steps
+  // S^T = K Q^T and dP^T = V dO^T of the tile in stage s, KS k16 steps
   // each (32 bytes along the swizzled rows of the B tile), K and V from
   // registers, one commit group each.
   auto issue_scores = [&](int s) {
     const uint64_t bq = q_k(s), bo = do_k(s);
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) wgmma_rs_kb<BT>(st, ka + 4 * ks, bq + 2 * ks, ks);
+    for (int ks = 0; ks < KS; ++ks) wgmma_rs_kb<BT>(st, ka + 4 * ks, bq + 2 * ks, ks);
     wgmma_commit();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) wgmma_rs_kb<BT>(dpt, va + 4 * ks, bo + 2 * ks, ks);
+    for (int ks = 0; ks < KS; ++ks) wgmma_rs_kb<BT>(dpt, va + 4 * ks, bo + 2 * ks, ks);
     wgmma_commit();
   };
   // acc += A B over the BT rows of the tile B (k16 steps of 16 rows, 2048
@@ -285,8 +304,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
 
   mbar_wait(bar_held, 0);
-  load_a_sw128(ka, sm.h0 + c * BM * ROW_BYTES);
-  load_a_sw128(va, sm.h1 + c * BM * ROW_BYTES);
+  load_a_sw128<KS>(ka, sm.h0 + c * BM * ROW_BYTES);
+  load_a_sw128<KS>(va, sm.h1 + c * BM * ROW_BYTES);
   for (int j = 0; j < nq; ++j) {
     const int s = j % STAGES, sp = (j + STAGES - 1) % STAGES;
     if (loader && j + STAGES - 2 < nq) land(j + STAGES - 2);
@@ -342,15 +361,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   fence_regs(acc_dv);
   fence_regs(pp);
   fence_regs(pds);
-  const size_t out = (size_t)bh * sk * D;
-  store_rows(dk + out, acc_dk, k0 + c * BM, sk);
-  store_rows(dv + out, acc_dv, k0 + c * BM, sk);
+  const size_t out = (size_t)bh * sk * DH;
+  store_rows<DH>(dk + out, acc_dk, k0 + c * BM, sk);
+  store_rows<DH>(dv + out, acc_dv, k0 + c * BM, sk);
 }
 
 // ---------------------------------------------------------------------- dq
 
 // grid (query tiles of ROWS, bh), NT threads. Warpgroup c owns queries
 // q0 + 64 c + [0, 64).
+template <int DH>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -359,7 +379,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ m, const float* __restrict__ l,
                          const float* __restrict__ di, bf16* __restrict__ dq, int sq, int sk,
                          float scale) {
-  constexpr int BT = BT_DQ, SN = BT / 2, TILE_BYTES = BT * ROW_BYTES;
+  constexpr int BT = BT_DQ, SN = BT / 2, TILE_BYTES = BT * ROW_BYTES, KS = d_steps<DH>();
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
   const Smem<TILE_BYTES> sm(smem_raw);  // h0 = Q, h1 = dO; s0 = K, s1 = V
@@ -405,7 +425,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     dis[h] = ok ? di[i] : 0.f;
   }
 
-  uint32_t qa[16], doa[16];
+  uint32_t qa[4 * KS], doa[4 * KS];
   float acc_dq[32];
   float sc[SN];          // S of the tile, then P
   float dp[SN];          // dP of the tile, then dS
@@ -416,10 +436,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto issue_scores = [&](int s) {
     const uint64_t bk = k_k(s), bv = v_k(s);
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) wgmma_rs_kb<BT>(sc, qa + 4 * ks, bk + 2 * ks, ks);
+    for (int ks = 0; ks < KS; ++ks) wgmma_rs_kb<BT>(sc, qa + 4 * ks, bk + 2 * ks, ks);
     wgmma_commit();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) wgmma_rs_kb<BT>(dp, doa + 4 * ks, bv + 2 * ks, ks);
+    for (int ks = 0; ks < KS; ++ks) wgmma_rs_kb<BT>(dp, doa + 4 * ks, bv + 2 * ks, ks);
     wgmma_commit();
   };
   auto issue_dq = [&](int s) {
@@ -441,8 +461,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const bool ragged = sk % BT != 0;
 
   mbar_wait(bar_held, 0);
-  load_a_sw128(qa, sm.h0 + c * BM * ROW_BYTES);
-  load_a_sw128(doa, sm.h1 + c * BM * ROW_BYTES);
+  load_a_sw128<KS>(qa, sm.h0 + c * BM * ROW_BYTES);
+  load_a_sw128<KS>(doa, sm.h1 + c * BM * ROW_BYTES);
   for (int j = 0; j < nk; ++j) {
     const int s = j % STAGES, sp = (j + STAGES - 1) % STAGES;
     if (loader && j + STAGES - 2 < nk) land(j + STAGES - 2);
@@ -481,29 +501,42 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   wgmma_wait<0>();
   fence_regs(acc_dq);
   fence_regs(pds);
-  store_rows(dq + (size_t)bh * sq * D, acc_dq, q0 + c * BM, sq);
+  store_rows<DH>(dq + (size_t)bh * sq * DH, acc_dq, q0 + c * BM, sq);
 }
 
-// The four tensor maps of a pass, q and do with boxes of q_box rows, k and
-// v of k_box rows: 0 on success, else a cudaError_t.
+// The four tensor maps of a pass at head dim d (40 or 64), q and do with
+// boxes of q_box rows, k and v of k_box rows: 0 on success, else a
+// cudaError_t.
 int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
                 const void* dout, int bh, int sq, int sk, int d, int q_box, int k_box) {
-  if (d != D || bh < 1 || bh > 65535 || sq < 1 || sk < 1) return cudaErrorInvalidValue;
+  if ((d != 40 && d != 64) || bh < 1 || bh > 65535 || sq < 1 || sk < 1)
+    return cudaErrorInvalidValue;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const bool ok = encode_rows64(fn, &maps[0], q, sq, bh, q_box) &&
-                  encode_rows64(fn, &maps[1], k, sk, bh, k_box) &&
-                  encode_rows64(fn, &maps[2], v, sk, bh, k_box) &&
-                  encode_rows64(fn, &maps[3], dout, sq, bh, q_box);
+  const bool ok = encode_rows(fn, &maps[0], q, d, sq, bh, q_box) &&
+                  encode_rows(fn, &maps[1], k, d, sk, bh, k_box) &&
+                  encode_rows(fn, &maps[2], v, d, sk, bh, k_box) &&
+                  encode_rows(fn, &maps[3], dout, d, sq, bh, q_box);
   return ok ? 0 : cudaErrorInvalidValue;
+}
+
+// Launch `kern`, one of a pass's instantiations, on `grid` with `smem`
+// bytes of dynamic shared memory.
+template <typename Kernel, typename... Args>
+int launch(Kernel kern, dim3 grid, size_t smem, void* stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The signature of p2p_flash_attn_bwd_dkv_bf16 (flash_attn_bwd.cu), for
-// d = 64 only: q, dout (bh, sq, 64), k, v, dk, dv (bh, sk, 64) contiguous
-// bf16 on 16-byte boundaries; m, l, di (bh, sq) f32. Returns a cudaError_t
-// (0 on success).
+// The signature of the f32 entry p2p_flash_attn_bwd_dkv (flash_attn_bwd.cu)
+// on bf16: q, dout (bh, sq, d), k, v, dk, dv (bh, sk, d) contiguous bf16 on
+// 16-byte boundaries, d = 40 or 64; m, l, di (bh, sq) f32. Returns a
+// cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_bwd_dkv_bf16_sm90(const void* q, const void* k, const void* v,
                                                 const void* dout, const float* m,
                                                 const float* l, const float* di, void* dk,
@@ -511,19 +544,14 @@ extern "C" int p2p_flash_attn_bwd_dkv_bf16_sm90(const void* q, const void* k, co
                                                 float scale, void* stream) {
   CUtensorMap maps[4];
   if (int bad = encode_maps(maps, q, k, v, dout, bh, sq, sk, d, BT_DKV, ROWS)) return bad;
-  constexpr size_t smem = smem_bytes<BT_DKV>(true);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((sk + ROWS - 1) / ROWS, bh);
-  flash_bwd_dkv_sm90_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], m, l, di, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), sq, sk, scale);
-  return cudaGetLastError();
+  return launch(d == 40 ? flash_bwd_dkv_sm90_kernel<40> : flash_bwd_dkv_sm90_kernel<64>, grid,
+                smem_bytes<BT_DKV>(true), stream, maps[0], maps[1], maps[2], maps[3], m, l, di,
+                static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, scale);
 }
 
-// The signature of p2p_flash_attn_bwd_dq_bf16, for d = 64 only: dq
-// (bh, sq, 64) bf16, the rest as above.
+// The signature of p2p_flash_attn_bwd_dq on bf16: dq (bh, sq, d) bf16, the
+// rest as above.
 extern "C" int p2p_flash_attn_bwd_dq_bf16_sm90(const void* q, const void* k, const void* v,
                                                const void* dout, const float* m,
                                                const float* l, const float* di, void* dq,
@@ -531,14 +559,10 @@ extern "C" int p2p_flash_attn_bwd_dq_bf16_sm90(const void* q, const void* k, con
                                                void* stream) {
   CUtensorMap maps[4];
   if (int bad = encode_maps(maps, q, k, v, dout, bh, sq, sk, d, ROWS, BT_DQ)) return bad;
-  constexpr size_t smem = smem_bytes<BT_DQ>(false);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((sq + ROWS - 1) / ROWS, bh);
-  flash_bwd_dq_sm90_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], m, l, di, static_cast<bf16*>(dq), sq, sk, scale);
-  return cudaGetLastError();
+  return launch(d == 40 ? flash_bwd_dq_sm90_kernel<40> : flash_bwd_dq_sm90_kernel<64>, grid,
+                smem_bytes<BT_DQ>(false), stream, maps[0], maps[1], maps[2], maps[3], m, l, di,
+                static_cast<bf16*>(dq), sq, sk, scale);
 }
 
 extern "C" const char* p2p_cuda_error_string(int code) {

@@ -330,8 +330,8 @@ extern "C" int p2p_flash_attn_fwd_bf16_sm90(const void* q, const void* k, const 
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!encode_rows64(fn, &tq, q, sq, bh, ROWS) || !encode_rows64(fn, &tk, k, sk, bh, BN) ||
-      !encode_rows64(fn, &tv, v, sk, bh, BN))
+  if (!encode_rows(fn, &tq, q, D, sq, bh, ROWS) || !encode_rows(fn, &tk, k, D, sk, bh, BN) ||
+      !encode_rows(fn, &tv, v, D, sk, bh, BN))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_d64_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);

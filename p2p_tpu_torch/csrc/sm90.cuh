@@ -1,9 +1,9 @@
 // Hopper's own instructions, shared by the kernels written on them
 // (flash_fwd_sm90.cu: K1/K3 in bf16 at d = 64; flash_bwd_sm90.cu: K4's two
-// passes in bf16 at d = 64): mbarriers, TMA loads of 64-wide bf16 rows
-// through 3-D tensor maps with the 128-byte swizzle, wgmma descriptors, the
-// wgmma forms those kernels issue and the loads of register A fragments, and
-// the host-side encoder of the tensor maps.
+// passes in bf16 at d = 40 and 64): mbarriers, TMA loads of bf16 rows into
+// 64-wide boxes through 3-D tensor maps with the 128-byte swizzle, wgmma
+// descriptors, the wgmma forms those kernels issue and the loads of register
+// A fragments, and the host-side encoder of the tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -186,16 +186,18 @@ __device__ __forceinline__ void wgmma_rs_n128_kb(float (&d)[64], const uint32_t*
 
 #undef P2P_F8
 
-// The A-register fragments of the four k16 steps of a warpgroup's 64 rows
-// of 64 bf16 columns, from a tile in the 128-byte swizzle at `rows`
-// (1024-aligned): the warp's 16 rows, by ldmatrix, whose fragment of a
-// 16 x 16 slab is wgmma's. Chunk ch (16 bytes) of row r lies at
-// r * 128 + (ch ^ r % 8) * 16.
-__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[16], uint32_t rows) {
+// The A-register fragments of the first KS k16 steps (KS <= 4) of a
+// warpgroup's 64 rows of 64 bf16 columns, from a tile in the 128-byte
+// swizzle at `rows` (1024-aligned): the warp's 16 rows, by ldmatrix, whose
+// fragment of a 16 x 16 slab is wgmma's. Chunk ch (16 bytes) of row r lies
+// at r * 128 + (ch ^ r % 8) * 16.
+template <int KS>
+__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4 * KS], uint32_t rows) {
+  static_assert(KS >= 1 && KS <= 4, "a 128-byte row holds four k16 steps");
   const int lane = threadIdx.x & 31, w = (threadIdx.x & 127) >> 5;
   const int r = 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     const int ch = 2 * ks + (lane >> 4);
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(a[4 * ks]), "=r"(a[4 * ks + 1]), "=r"(a[4 * ks + 2]), "=r"(a[4 * ks + 3])
@@ -231,16 +233,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous (bh, rows, 64) bf16 tensor: dims (64, rows, bh),
-// box (64, box_rows, 1), 128-byte swizzle (a 64-wide bf16 row is one swizzle
-// row), out-of-bounds rows read as zeros. A box never reads the next head's
-// rows.
-inline bool encode_rows64(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows, int bh,
-                          int box_rows) {
-  constexpr int D = 64, ROW_BYTES = 2 * D;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)ROW_BYTES, (cuuint64_t)rows * ROW_BYTES};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
+// The map of a contiguous (bh, rows, d) bf16 tensor, d = 40 or 64: dims
+// (d, rows, bh), box (64, box_rows, 1), 128-byte swizzle (a box row of 64
+// bf16 is one swizzle row). Out-of-bounds elements read as zeros: rows past
+// `rows`, and at d = 40 the box's columns 40..63, so a 40-wide row lands as
+// a 64-wide one with zeros after it (its 80-byte stride is a multiple of 16,
+// as TMA requires; the zeros count toward the box's bytes). A box never
+// reads the next head's rows.
+inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int rows,
+                        int bh, int box_rows) {
+  constexpr int BOX_COLS = 64;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)2 * d, (cuuint64_t)rows * 2 * d};
+  const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

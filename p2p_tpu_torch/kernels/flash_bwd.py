@@ -4,12 +4,12 @@ the autograd Function that pairs it with K3.
 Replaces the JAX library's flash backward, the Pallas kernels
 ``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq`` that
 ``jax.grad`` runs through ``flash_attention_tpu``
-(``p2p_tpu/models/nn.py``, configured by ``_flash_block_sizes``). The CUDA
-kernels are ``csrc/flash_attn_bwd.cu``: two passes, dk/dv over key tiles
-and dq over query tiles, each recomputing the probabilities from K3's
+(``p2p_tpu/models/nn.py``, configured by ``_flash_block_sizes``). The f32
+CUDA kernels are ``csrc/flash_attn_bwd.cu``: two passes, dk/dv over key
+tiles and dq over query tiles, each recomputing the probabilities from K3's
 residuals ``(l, m)``, every product on the tensor cores in 3xTF32 (f32
-accuracy; :mod:`.tf32` emulates it), deterministic (no atomics). ``di = Σ o·do`` is taken
-in PyTorch here, in f32, as the JAX rule takes it outside its kernels. Path
+accuracy; :mod:`.tf32` emulates it), deterministic (no atomics).
+``di = Σ o·do`` is taken in PyTorch here, in f32, as the JAX rule takes it outside its kernels. Path
 shapes: the U-Net's self sites of 2048 pixels or more under the null-text
 inversion's gradient, ``(1, 8, 4096, 40)`` at SD-1.4 and, at head dim 64,
 ``(1, 5, 9216, 64)`` and ``(1, 10, 2304, 64)`` at SD-2.1 768-v and
@@ -22,15 +22,17 @@ round — ``p`` to bf16 before ``dv += pᵀ·do``, ``ds = (dp − di)·p·scale`
 to bf16 after the scale before ``dk += dsᵀ·q`` and ``dq += ds·k``, the
 sums once at the end. The plain passes round at the same points (the
 identity in f32, where the scale stays at the end as the f32 kernels take
-it). At d = 64, SD-2.1's head dim, the bf16 passes are
+it). At both head dims, SD-1.4's 40 and SD-2.1's 64, the bf16 passes are
 ``flash_bwd_dkv_sm90_kernel`` and ``flash_bwd_dq_sm90_kernel``
-(``csrc/flash_bwd_sm90.cu``, a library of its own): Hopper's ``wgmma`` fed
-by TMA, 128 rows a block, the other side streamed (64 queries a tile in
-dk/dv, 128 keys in dq), the products summed in the ``wgmma`` accumulator
-across tiles; these rounding
-points do not depend on the tile, so the plain passes are their yardstick
-too. :func:`entry_for` picks each pass's C entry. bf16 launches count
-apart, in ``.bf16_launches``.
+(``csrc/flash_bwd_sm90.cu``, a library of its own, templated on the head
+dim): Hopper's ``wgmma`` fed by TMA, 128 rows a block, the other side
+streamed (64 queries a tile in dk/dv, 128 keys in dq), the products summed
+in the ``wgmma`` accumulator across tiles. At d = 40 TMA lands each
+40-column row in a 64-column box with zeros after it, so both head dims
+share the tiles and the pipeline. These rounding points do not depend on
+the tile, so the plain passes are their yardstick too. :func:`entry_for`
+picks each pass's C entry: f32 at both head dims stays on
+``flash_attn_bwd.cu``. bf16 launches count apart, in ``.bf16_launches``.
 
 On CPU tensors each pass's wrapper (:func:`flash_attention_bwd_dkv`,
 :func:`flash_attention_bwd_dq`) runs its plain version; on CUDA tensors it
@@ -115,18 +117,18 @@ def flash_attention_bwd_plain(q, k, v, o, do, l, m, scale: float):
     return flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale), dk, dv
 
 
-#: The library of each backward C entry: bf16 at d = 64 runs on Hopper's
-#: wgmma and TMA in a library of its own.
+#: The library of each backward C entry: bf16 runs on Hopper's wgmma and TMA
+#: in a library of its own.
 ENTRIES = {f"p2p_flash_attn_bwd_{p}{sfx}": lib for p in ("dkv", "dq")
-           for sfx, lib in (("", "flash_attn_bwd"), ("_bf16", "flash_attn_bwd"),
-                            ("_bf16_sm90", "flash_bwd_sm90"))}
+           for sfx, lib in (("", "flash_attn_bwd"), ("_bf16_sm90", "flash_bwd_sm90"))}
 _BACKWARD: dict = {}
 
 
 def entry_for(pass_: str, dtype: torch.dtype, d: int) -> str:
     """The C entry of K4's ``pass_`` (``"dkv"`` or ``"dq"``) that runs
-    ``dtype`` at head dim ``d``."""
-    sfx = "" if dtype != torch.bfloat16 else "_bf16_sm90" if d == 64 else "_bf16"
+    ``dtype`` at head dim ``d`` (40 or 64): the sm90 pass in bf16, the
+    3xTF32 pass in f32."""
+    sfx = "_bf16_sm90" if dtype == torch.bfloat16 else ""
     return f"p2p_flash_attn_bwd_{pass_}{sfx}"
 
 

@@ -72,10 +72,8 @@ CLASSES = (
                           "flash_d64_sm90_kernel", "flash_fwd_kernel",
                           "flash_d512_kernel", "flash_d512_bf16_kernel",
                           "flash_merge_kernel")),
-    ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_bf16_kernel",
-                               "flash_bwd_dkv_sm90_kernel")),
-    ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_bf16_kernel",
-                              "flash_bwd_dq_sm90_kernel")),
+    ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
+    ("K4 flash_attn_bwd dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("K2 fused_edit", ("edit_attn_kernel", "edit_attn_bf16_kernel", "fold_kernel")),
     ("norms' backward sums", ("window_sum_bf16_kernel", "window_sum_block_bf16_kernel")),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",

@@ -2,16 +2,17 @@
 """K4 from another checkout against this checkout's, on the card, on the
 same inputs, each pass timed in turns (other, this, this, other):
 
-- d = 40 (SD-1.4's gradient sites, (1, 8, 4096, 40)) in f32 and bf16, and
-  d = 64 in f32 at SD-2.1's three gradient sites, (1, 5, 9216, 64),
-  (1, 10, 2304, 64) and (1, 5, 4096, 64): both checkouts'
-  ``csrc/flash_attn_bwd.cu``, dq, dk and dv bit for bit;
-- d = 64 in bf16 at the same three sites: the other checkout's entry for
-  it (its ``csrc/flash_bwd_sm90.cu`` where it has one, else its
-  ``flash_attn_bwd.cu``) against this checkout's route
-  (``kernels.flash_bwd.entry_for``): dq, dk and dv within ``BF16_TOL`` of
-  each other's and of the plain passes' largest magnitude (their tiles
-  differ, so not bitwise), each bitwise across two launches; SDPA's
+- f32 at d = 40 (SD-1.4's gradient sites, (1, 8, 4096, 40)) and at d = 64
+  (SD-2.1's three, (1, 5, 9216, 64), (1, 10, 2304, 64) and
+  (1, 5, 4096, 64)): both checkouts' ``csrc/flash_attn_bwd.cu``, dq, dk
+  and dv bit for bit;
+- bf16 at the same four sites: the other checkout's entry for it (its
+  ``csrc/flash_attn_bwd.cu`` bf16 entry where that has one and, at d = 64,
+  no ``csrc/flash_bwd_sm90.cu`` stands beside it; else its sm90 entry)
+  against this checkout's route (``kernels.flash_bwd.entry_for``): dq, dk
+  and dv bit for bit where both checkouts run the entry of the same name,
+  else within ``BF16_TOL`` of each other's and of the plain passes' largest
+  magnitude (their tiles differ), each bitwise across two launches; SDPA's
   backward alone beside them, eager and as a replayed CUDA graph;
 - the host's µs a call of the bf16 d = 64 passes at a shape whose device
   time is short, (1, 2, 300, 64) with Sk = 70: C entry against C entry,
@@ -44,10 +45,7 @@ import chip_smoke as cs  # noqa: E402
 from p2p_tpu_torch import kernels as K  # noqa: E402
 from p2p_tpu_torch.kernels import build, flash_bwd  # noqa: E402
 
-BITWISE = (((1, 8, 4096, 40), torch.float32), ((1, 8, 4096, 40), torch.bfloat16),
-           ((1, 5, 9216, 64), torch.float32), ((1, 10, 2304, 64), torch.float32),
-           ((1, 5, 4096, 64), torch.float32))
-BF16_D64 = ((1, 5, 9216, 64), (1, 10, 2304, 64), (1, 5, 4096, 64))
+SITES = ((1, 8, 4096, 40), (1, 5, 9216, 64), (1, 10, 2304, 64), (1, 5, 4096, 64))
 HOST_SHAPE = (1, 2, 300, 64)   # and Sk = 70: the host, not the device, sets the pace
 HOST_CALLS = 2000
 # A checkout's K4 wrappers in bf16 at d = 64, host µs a call of both passes
@@ -89,8 +87,9 @@ def wrapper_us(checkout: str) -> float:
 
 def other_entries(checkout: str):
     """``{(pass, dtype, d): (library, function)}`` of the other checkout,
-    built here: its ``flash_attn_bwd.cu`` entries and, for bf16 at d = 64,
-    its ``flash_bwd_sm90.cu`` ones where it has that source."""
+    built here: its ``flash_attn_bwd.cu`` entries and, for bf16, its
+    ``flash_bwd_sm90.cu`` ones where it has that source, except at d = 40
+    where its ``flash_attn_bwd.cu`` still has a bf16 entry."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {}
     for name in ("flash_attn_bwd", "flash_bwd_sm90"):
@@ -107,7 +106,8 @@ def other_entries(checkout: str):
                          (torch.bfloat16, 64)):
             sfx = "" if dtype == torch.float32 else "_bf16"
             lib = libs["flash_attn_bwd"]
-            if dtype == torch.bfloat16 and d == 64 and "flash_bwd_sm90" in libs:
+            if dtype == torch.bfloat16 and "flash_bwd_sm90" in libs and (
+                    d == 64 or not hasattr(lib, f"p2p_flash_attn_bwd_{p}_bf16")):
                 lib, sfx = libs["flash_bwd_sm90"], "_bf16_sm90"
             fn = getattr(lib, f"p2p_flash_attn_bwd_{p}{sfx}")
             fn.argtypes = [ctypes.c_void_p] * (9 if p == "dkv" else 8) + [ctypes.c_int] * 4 + [
@@ -174,7 +174,8 @@ def main(argv) -> int:
     print(card)
     gen = torch.Generator("cuda").manual_seed(3)
     bad, rows = [], []
-    for shape, dtype in BITWISE + tuple((s, torch.bfloat16) for s in BF16_D64):
+    cases = [(s, torch.float32) for s in SITES] + [(s, torch.bfloat16) for s in SITES]
+    for shape, dtype in cases:
         b, h, s, d = shape
         scale = d ** -0.5
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -202,12 +203,11 @@ def main(argv) -> int:
         tag = f"K4 d={d} {str(dtype).split('.')[-1]} {shape}"
         row = {"shape": list(shape), "dtype": str(dtype), "entries": {
             name: [fn.__name__ for _, fn in e.values()] for name, e in entries.items()}}
-        if (shape, dtype) in BITWISE:
-            row["bitwise_equal"] = all(torch.equal(x, y)
-                                       for x, y in zip(got["other"], got["this"]))
+        row["bitwise_equal"] = all(torch.equal(x, y) for x, y in zip(got["other"], got["this"]))
+        verdict = f"bitwise equal to the other checkout's: {row['bitwise_equal']}"
+        if row["entries"]["other"] == row["entries"]["this"]:
             if not row["bitwise_equal"]:
                 bad.append(f"{tag}: outputs differ from the other checkout's")
-            verdict = f"bitwise equal to the other checkout's: {row['bitwise_equal']}"
         else:
             p_dk, p_dv = K.flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
             plain = (K.flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale), p_dk, p_dv)
@@ -221,7 +221,7 @@ def main(argv) -> int:
                     if e > cs.BF16_TOL:
                         bad.append(f"{tag} {what} {key}: {e:.3g} > {cs.BF16_TOL}")
             row["errors"] = errs
-            verdict = ", ".join(f"{key} {e:.3g}" for key, e in errs.items())
+            verdict += "; " + ", ".join(f"{key} {e:.3g}" for key, e in errs.items())
         if not all(torch.equal(x, y) for x, y in zip(got["this"], again)):
             bad.append(f"{tag}: two launches differ")
         iters = 10 if s == 9216 else 20
@@ -230,7 +230,7 @@ def main(argv) -> int:
             for p in ("dkv", "dq"):
                 times[f"{name}_{p}"].append(cs.cuda_ms(torch, lambda: passes(name, (p,)), iters))
         row["ms"] = times
-        if dtype == torch.bfloat16 and d == 64:
+        if dtype == torch.bfloat16:
             row["sdpa_bwd_ms"], row["sdpa_fwd_bwd_ms"] = cs.sdpa_times(torch, F, q, k, v, do,
                                                                        scale, iters)
             row["sdpa_bwd_graph_ms"] = cs.sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale, iters)
