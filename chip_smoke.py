@@ -87,9 +87,11 @@ Phases, each of which raises on failure:
    both K4 passes at d = 64 in f32 (3xTF32, within ``TC_TOL``) and bf16
    (within ``BF16_TOL``) at the inversion's gradient sites of both
    configs, (1, 5, 9216, 64), (1, 10, 2304, 64) and (1, 5, 4096, 64), and
-   ragged (Sq = 300 with Sk = 70, and Sq = 70 with Sk = 300); in bf16 K4 is
-   ``flash_bwd_{dkv,dq}_sm90_kernel`` (wgmma and TMA, SASS checked as K1's;
-   ptxas must report no spills in either library), and K4 and SDPA's
+   ragged (Sq = 300 with Sk = 70, and Sq = 70 with Sk = 300); K4 is
+   ``flash_bwd_{dkv,dq}_sm90_kernel`` in bf16 and
+   ``flash_bwd_{dkv,dq}_tf32_sm90_kernel`` in f32 (3xTF32), both on wgmma
+   and TMA (SASS checked as K1's; ptxas must report no spills in any sm90
+   library), and K4 and SDPA's
    backward are also timed as replayed CUDA graphs; K2 at every D = 64
    geometry of both configs' Replace edits in
    both dtypes; K1 at d = 512 at the 768² VAE's (2, 1, 9216, 512) and (1,
@@ -512,7 +514,9 @@ def sdpa_times(torch, F, q, k, v, do, scale: float, iters: int):
 #: with its kernels' instantiations: "name" or "name<head dim>".
 SM90_LIBRARIES = {"flash_fwd_sm90": ("flash_d64_sm90_kernel",),
                   "flash_bwd_sm90": tuple(f"flash_bwd_{p}_sm90_kernel<{d}>"
-                                          for p in ("dkv", "dq") for d in (40, 64))}
+                                          for p in ("dkv", "dq") for d in (40, 64)),
+                  "flash_bwd_tf32_sm90": ("flash_bwd_dkv_tf32_sm90_kernel",
+                                          "flash_bwd_dq_tf32_sm90_kernel")}
 
 
 def kernel_instance(symbol: str):
@@ -671,7 +675,7 @@ def k34_d64_phases(torch, K, F, dtype):
     2304, 64) and 512-base's (1, 5, 4096, 64), then the ragged lengths S =
     4100, Sq = 300 with Sk = 70 and Sq = 70 with Sk = 300. Outputs and
     gradients within ``TC_TOL`` (f32: flash_d64_kernel,
-    flash_bwd_{dkv,dq}_kernel<64>, all 3xTF32) or ``BF16_TOL`` (bf16:
+    flash_bwd_{dkv,dq}_tf32_sm90_kernel, all 3xTF32) or ``BF16_TOL`` (bf16:
     flash_d64_sm90_kernel and flash_bwd_{dkv,dq}_sm90_kernel) of the plain
     versions' largest magnitude, K3's f32 ``m`` and ``l`` within ``TC_TOL``
     relative, each bitwise across two launches; the K4 passes take the
@@ -1537,7 +1541,7 @@ def main() -> int:
     from p2p_tpu_torch.models.config import SD14
     from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
-    sass, sass_bwd = (sm90_sass(build, name) for name in SM90_LIBRARIES)
+    sass, sass_bwd, sass_bwd_tf32 = (sm90_sass(build, name) for name in SM90_LIBRARIES)
     d40_blocks, d40_warps = d40_occupancy()
     print(f"K1/K3 d = 40 kernel: {d40_warps} warps a block, {d40_blocks} "
           "blocks per SM")
@@ -1706,18 +1710,19 @@ def main() -> int:
                        rows[f"K4_{p}"],
                        units=(f"tensor cores, bf16: wgmma fed by TMA "
                               f"(flash_bwd_{p}_sm90_kernel)" if sfx else
-                              f"tensor cores, 3xTF32 (flash_bwd_{p}_kernel<64>)"),
+                              f"tensor cores, 3xTF32: tf32 wgmma fed by TMA, 32-row tiles "
+                              f"split in shared memory (flash_bwd_{p}_tf32_sm90_kernel)"),
                        note=f"K4's {p} pass at d = 64, the SD-2.1 inversion's gradient "
                             f"sites (768-v and 512-base shapes); launches from the sd21 "
                             f"{dt} inversion; library_ms is SDPA's backward alone in "
                             f"{dt}, sdpa_fwd_bwd_ms its forward and backward; graph_ms "
                             f"and library_graph_ms the pass and SDPA's backward alone "
                             f"replayed as CUDA graphs",
-                       **({"sass": sass_bwd,
-                           "ptxas": sm90_ptxas.get(f"flash_bwd_{p}_sm90_kernel<64>")}
-                          if sfx else {}))
+                       sass=sass_bwd if sfx else sass_bwd_tf32,
+                       ptxas=sm90_ptxas.get(f"flash_bwd_{p}_sm90_kernel<64>" if sfx else
+                                            f"flash_bwd_{p}_tf32_sm90_kernel"))
           for sfx, dt, dims, rows, source in (
-              ("", "f32", dims_inv21, k34_d64, "flash_attn_bwd"),
+              ("", "f32", dims_inv21, k34_d64, "flash_bwd_tf32_sm90"),
               ("_bf16", "bf16", dims_inv21_16, k34_d64_bf16, "flash_bwd_sm90"))
           for p in ("dkv", "dq")),
         kernel_entry("fused_edit_d64", "p2p_tpu_torch/csrc/fused_edit.cu",

@@ -1,5 +1,7 @@
-// K4: flash attention backward, non-causal, unmasked, f32 in and out; in
-// bf16 it runs on Hopper's wgmma and TMA in flash_bwd_sm90.cu.
+// K4: flash attention backward, non-causal, unmasked, f32 in and out, at
+// head dim 40; at d = 64 the f32 passes run on Hopper's wgmma and TMA in
+// flash_bwd_tf32_sm90.cu, and in bf16 at both head dims in
+// flash_bwd_sm90.cu.
 //
 // Replaces the JAX library's flash backward that `jax.grad` runs through
 // `flash_attention_tpu` (p2p_tpu/models/nn.py:308-340): the Pallas kernels
@@ -9,8 +11,8 @@
 // iteration at the U-Net's self sites of 2048 pixels or more: SD-1.4's
 // 64x64-pixel sites, (1, 8, 4096, 40), and SD-2.1's at head dim 64, (1, 5,
 // 9216, 64) and (1, 10, 2304, 64) at 768-v and (1, 5, 4096, 64) at 512-base.
-// The head dim is a template parameter, instantiated at 40 and 64; each C
-// entry dispatches on it.
+// The head dim is a template parameter, instantiated here at 40 only (d = 64
+// in f32 is flash_bwd_tf32_sm90.cu's); each C entry dispatches on it.
 //
 // Inputs: q, do (bh, sq, d); k, v (bh, sk, d); the forward's residuals m and
 // l (bh, sq) from K3; and di = sum_c o * do (bh, sq), computed by the wrapper
@@ -40,7 +42,7 @@
 // block splits it into its TF32 parts once, in place (split_tile), rather
 // than each warp at every read: Q and dO per query tile and K and V once in
 // dkv, K and V per key tile and Q and dO once in dq (ten tiles: 113 KB of
-// shared memory at d = 40, two blocks an SM; 176 KB at d = 64, one).
+// shared memory at d = 40, two blocks an SM).
 // The tensor cores' accumulation rounds toward zero, which over a whole
 // 4096-long sum biased the gradients by some 2e-5 of their largest value;
 // each tile's product is therefore summed in its own accumulator and added
@@ -71,7 +73,7 @@ struct F32 {
   static constexpr int TILE = BR * LD;
   static constexpr int NKS = D / 8;     // k-steps and n-tiles over the head dim
   // n-tiles of out += C B whose B fragments are in registers at once: all
-  // five at d = 40, four of eight at d = 64 (registers).
+  // five at d = 40; four at a time where there are multiples of four.
   static constexpr int GCB = NKS % 4 == 0 ? 4 : NKS;
   static constexpr size_t DKV_SMEM = sizeof(float) * (10 * TILE + 7 * BR);
   static constexpr size_t DQ_SMEM = sizeof(float) * (10 * TILE + 3 * BR);
@@ -401,18 +403,18 @@ int launch_f32(bool dkv, int tiles, int bh, void** args, void* stream) {
                 static_cast<cudaStream_t>(stream));
 }
 
-// The pass at head dim d, 40 or 64; cudaErrorInvalidValue for any other.
+// The pass at head dim d = 40; cudaErrorInvalidValue for any other (d = 64
+// in f32 runs in flash_bwd_tf32_sm90.cu).
 int dispatch(bool dkv, int d, int tiles, int bh, void** args, void* stream) {
   if (d == 40) return launch_f32<40>(dkv, tiles, bh, args, stream);
-  if (d == 64) return launch_f32<64>(dkv, tiles, bh, args, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, dout: (bh, sq, d); k, v: (bh, sk, d); m, l, di: (bh, sq); dk, dv:
-// (bh, sk, d). All contiguous f32; d = 40 or 64. Returns a cudaError_t (0
-// on success).
+// (bh, sk, d). All contiguous f32; d = 40. Returns a cudaError_t (0 on
+// success).
 extern "C" int p2p_flash_attn_bwd_dkv(const float* q, const float* k,
                                       const float* v, const float* dout,
                                       const float* m, const float* l,
@@ -424,7 +426,7 @@ extern "C" int p2p_flash_attn_bwd_dkv(const float* q, const float* k,
 }
 
 // q, dout, dq: (bh, sq, d); k, v: (bh, sk, d); m, l, di: (bh, sq). All
-// contiguous f32; d = 40 or 64. Returns a cudaError_t (0 on success).
+// contiguous f32; d = 40. Returns a cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_bwd_dq(const float* q, const float* k,
                                      const float* v, const float* dout,
                                      const float* m, const float* l,

@@ -1,9 +1,11 @@
 // Hopper's own instructions, shared by the kernels written on them
 // (flash_fwd_sm90.cu: K1/K3 in bf16 at d = 64; flash_bwd_sm90.cu: K4's two
-// passes in bf16 at d = 40 and 64): mbarriers, TMA loads of bf16 rows into
-// 64-wide boxes through 3-D tensor maps with the 128-byte swizzle, wgmma
-// descriptors, the wgmma forms those kernels issue and the loads of register
-// A fragments, and the host-side encoder of the tensor maps.
+// passes in bf16 at d = 40 and 64; flash_bwd_tf32_sm90.cu: K4's two passes
+// in f32 at d = 64): mbarriers, TMA loads of bf16 rows into 64-wide boxes
+// and of f32 rows into 32-wide ones through 3-D tensor maps with the
+// 128-byte swizzle, wgmma descriptors, the wgmma forms those kernels issue
+// and the loads of register A fragments, and the host-side encoders of the
+// tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -59,6 +61,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
       : "memory");
+}
+
+// The map's box at (col, row, bh): tma_load with a column coordinate, for
+// rows wider than one box.
+__device__ __forceinline__ void tma_load_col(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int col, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// Order this thread's ordinary writes to shared memory before later reads
+// and writes of the async proxy (wgmma operands, TMA), once a barrier has
+// passed them on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -184,6 +204,64 @@ __device__ __forceinline__ void wgmma_rs_n128_kb(float (&d)[64], const uint32_t*
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// The tf32 forms (flash_bwd_tf32_sm90.cu, K4 in f32). wgmma has no
+// transposed form for tf32: both operands in shared memory are K-major. A
+// k8 step is 32 bytes of a 128-byte swizzle row, as a bf16 k16 step is, so
+// the descriptors above serve unchanged; a row of 64 f32 spans two swizzle
+// rows, which lie in two separate 32-column tiles. The register A fragment
+// of a k8 step (thread tw of the warpgroup, w = tw / 32, g = lane / 4,
+// t = lane % 4): a0 (16 w + g, t), a1 (16 w + g + 8, t), a2 (16 w + g,
+// t + 4), a3 (16 w + g + 8, t + 4); the accumulator layout is the one above.
+
+// d (64 x 32, f32) = [d +] A (64 x 8) B (8 x 32), tf32, A and B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : P2P_F8(d, 0), P2P_F8(d, 8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, f32) = [d +] A (64 x 8, tf32 in registers) B (8 x 32), B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[16], const uint32_t* a, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : P2P_F8(d, 0), P2P_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = [d +] A (64 x 8, tf32 in registers) B (8 x 64), B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t* a,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : P2P_F8(d, 0), P2P_F8(d, 8), P2P_F8(d, 16), P2P_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef P2P_F8
 
 // The A-register fragments of the first KS k16 steps (KS <= 4) of a
@@ -248,6 +326,24 @@ inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d
   const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a contiguous (bh, rows, d) f32 tensor, d a multiple of 32:
+// dims (d, rows, bh), box (32, box_rows, 1), 128-byte swizzle (a box row of
+// 32 f32 is one swizzle row; a row of d lands as d / 32 boxes, loaded by
+// tma_load_col at columns 0, 32, ...). Rows past `rows` read as zeros; a
+// box never reads the next head's rows.
+inline bool encode_rows_f32(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int rows,
+                            int bh, int box_rows) {
+  constexpr int BOX_COLS_F32 = 32;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)4 * d, (cuuint64_t)rows * 4 * d};
+  const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS_F32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

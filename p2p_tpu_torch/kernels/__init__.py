@@ -6,8 +6,10 @@
   writing each row's softmax max and sum.
 - K4 :func:`flash_bwd.flash_attention_bwd` — flash attention backward, a
   dk/dv pass (:func:`flash_bwd.flash_attention_bwd_dkv`) and a dq pass
-  (:func:`flash_bwd.flash_attention_bwd_dq`), ``csrc/flash_attn_bwd.cu``;
-  with K3 it makes :class:`flash_bwd.FlashAttentionFunction`.
+  (:func:`flash_bwd.flash_attention_bwd_dq`), ``csrc/flash_attn_bwd.cu``
+  (f32 at d = 40), ``csrc/flash_bwd_tf32_sm90.cu`` (f32 at d = 64) and
+  ``csrc/flash_bwd_sm90.cu`` (bf16); with K3 it makes
+  :class:`flash_bwd.FlashAttentionFunction`.
 - K2 :func:`fused_edit.edit_attention` — softmax with the prompt-to-prompt
   edit inside it (``csrc/fused_edit.cu``): a fold kernel, then the main
   kernel.

@@ -5,7 +5,7 @@ Replaces the JAX library's flash backward, the Pallas kernels
 ``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq`` that
 ``jax.grad`` runs through ``flash_attention_tpu``
 (``p2p_tpu/models/nn.py``, configured by ``_flash_block_sizes``). The f32
-CUDA kernels are ``csrc/flash_attn_bwd.cu``: two passes, dk/dv over key
+CUDA kernels at d = 40 are ``csrc/flash_attn_bwd.cu``: two passes, dk/dv over key
 tiles and dq over query tiles, each recomputing the probabilities from K3's
 residuals ``(l, m)``, every product on the tensor cores in 3xTF32 (f32
 accuracy; :mod:`.tf32` emulates it), deterministic (no atomics).
@@ -30,9 +30,16 @@ streamed (64 queries a tile in dk/dv, 128 keys in dq), the products summed
 in the ``wgmma`` accumulator across tiles. At d = 40 TMA lands each
 40-column row in a 64-column box with zeros after it, so both head dims
 share the tiles and the pipeline. These rounding points do not depend on
-the tile, so the plain passes are their yardstick too. :func:`entry_for`
-picks each pass's C entry: f32 at both head dims stays on
-``flash_attn_bwd.cu``. bf16 launches count apart, in ``.bf16_launches``.
+the tile, so the plain passes are their yardstick too. In f32 at d = 64
+the passes are ``flash_bwd_dkv_tf32_sm90_kernel`` and
+``flash_bwd_dq_tf32_sm90_kernel`` (``csrc/flash_bwd_tf32_sm90.cu``):
+3xTF32 on ``wgmma`` fed by TMA, 128 rows a block, the other side streamed
+in 32-row tiles that the block splits into hi and lo (and, for the
+products that contract over them, a transposed copy), each tile's product
+summed in an accumulator of its own (:func:`.tf32.flash_bwd_dkv_tiles`
+and :func:`.tf32.flash_bwd_dq_tiles` emulate them). :func:`entry_for`
+picks each pass's C entry: f32 at d = 40 stays on ``flash_attn_bwd.cu``.
+bf16 launches count apart, in ``.bf16_launches``.
 
 On CPU tensors each pass's wrapper (:func:`flash_attention_bwd_dkv`,
 :func:`flash_attention_bwd_dq`) runs its plain version; on CUDA tensors it
@@ -117,18 +124,23 @@ def flash_attention_bwd_plain(q, k, v, o, do, l, m, scale: float):
     return flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale), dk, dv
 
 
-#: The library of each backward C entry: bf16 runs on Hopper's wgmma and TMA
-#: in a library of its own.
+#: The library of each backward C entry: bf16, and f32 at d = 64, run on
+#: Hopper's wgmma and TMA in libraries of their own.
 ENTRIES = {f"p2p_flash_attn_bwd_{p}{sfx}": lib for p in ("dkv", "dq")
-           for sfx, lib in (("", "flash_attn_bwd"), ("_bf16_sm90", "flash_bwd_sm90"))}
+           for sfx, lib in (("", "flash_attn_bwd"), ("_bf16_sm90", "flash_bwd_sm90"),
+                            ("_f32_sm90", "flash_bwd_tf32_sm90"))}
 _BACKWARD: dict = {}
 
 
 def entry_for(pass_: str, dtype: torch.dtype, d: int) -> str:
     """The C entry of K4's ``pass_`` (``"dkv"`` or ``"dq"``) that runs
-    ``dtype`` at head dim ``d`` (40 or 64): the sm90 pass in bf16, the
-    3xTF32 pass in f32."""
-    sfx = "_bf16_sm90" if dtype == torch.bfloat16 else ""
+    ``dtype`` at head dim ``d`` (40 or 64): the bf16 sm90 pass in bf16;
+    in f32 the 3xTF32 sm90 pass at d = 64 and the ``mma.sync`` pass of
+    ``flash_attn_bwd.cu`` at d = 40."""
+    if dtype == torch.bfloat16:
+        sfx = "_bf16_sm90"
+    else:
+        sfx = "_f32_sm90" if d == 64 else ""
     return f"p2p_flash_attn_bwd_{pass_}{sfx}"
 
 

@@ -1,6 +1,7 @@
 """Plain emulation of the tensor-core arithmetic of the port's 3xTF32
 kernels (``csrc/mma_tf32.cuh``: K1 and K3 at d = 40, 64 and 512, both
-passes of K4, K2's main kernel).
+passes of K4 at d = 40, K2's main kernel; K4 at d = 64 on ``wgmma`` in
+``csrc/flash_bwd_tf32_sm90.cu``).
 
 A TF32 operand keeps the sign, the 8 exponent bits and the top 10 of f32's
 23 mantissa bits. The kernels split each f32 operand ``x`` into ``hi =
@@ -14,7 +15,9 @@ d = 64 one (``flash_d64_kernel``, whose landed tile is one 64-key step):
 the online softmax in base 2, each step's products in a fresh accumulator
 added in f32, and the residuals converted back to natural units. :func:`fused_edit_folded`
 follows K2 (``csrc/fused_edit.cu``): the fold in f32, then one or two such
-passes a row.
+passes a row. :func:`flash_bwd_dkv_tiles` and :func:`flash_bwd_dq_tiles`
+follow K4's f32 passes at d = 64 (``flash_bwd_dkv_tf32_sm90_kernel``,
+``flash_bwd_dq_tf32_sm90_kernel``) tile by tile.
 
 The tests use these functions to show what the kernels' arithmetic does to
 an attention output; the main path does not call them.
@@ -138,3 +141,55 @@ def fused_edit_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out = out + attend(q[b], k[b], v2[e])
         rows.append(out[None])
     return torch.cat(rows).to(v.dtype)
+
+
+#: Rows of a streamed tile of K4's f32 passes at d = 64: queries in dk/dv,
+#: keys in dq (``BT`` in ``csrc/flash_bwd_tf32_sm90.cu``).
+K4_F32_TILE = 32
+
+
+def _lse2_scale2(l: torch.Tensor, m: torch.Tensor, scale: float):
+    """``(lse2, scale2)`` in f32 as the kernels form them: ``lse2 =
+    m·log2(e) + log2(l)`` and ``scale2 = scale·log2(e)``."""
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    return (m.float() * log2e + torch.log2(l.float()),
+            torch.tensor(scale, dtype=torch.float32) * log2e)
+
+
+def flash_bwd_dkv_tiles(q, k, v, do, l, m, di, scale: float, mm=mm_3xtf32,
+                        tile: int = K4_F32_TILE):
+    """``(dk, dv)`` as ``flash_bwd_dkv_tf32_sm90_kernel`` computes them: per
+    tile of ``tile`` queries, ``sᵀ = mm(k, q_tᵀ)``, ``pᵀ = 2^(sᵀ·scale·log2(e)
+    − lse2)``, ``dpᵀ = mm(v, do_tᵀ)``, ``dsᵀ = pᵀ∘(dpᵀ − di)``, and the
+    tile's ``mm(pᵀ, do_t)`` and ``mm(dsᵀ, q_t)`` added to ``dv`` and ``dk``
+    in f32; ``dk`` scaled once at the end."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    lse2, scale2 = _lse2_scale2(l, m, scale)
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    for q0 in range(0, q.shape[-2], tile):
+        sl = slice(q0, q0 + tile)
+        qt, dot = q[..., sl, :], do[..., sl, :]
+        p = torch.exp2(mm(k, qt.transpose(-1, -2)) * scale2 - lse2[..., None, sl])
+        ds = p * (mm(v, dot.transpose(-1, -2)) - di[..., None, sl].float())
+        dv = dv + mm(p, dot)
+        dk = dk + mm(ds, qt)
+    return dk * scale, dv
+
+
+def flash_bwd_dq_tiles(q, k, v, do, l, m, di, scale: float, mm=mm_3xtf32,
+                       tile: int = K4_F32_TILE):
+    """``dq`` as ``flash_bwd_dq_tf32_sm90_kernel`` computes it: per tile of
+    ``tile`` keys, ``s = mm(q, k_tᵀ)``, ``p = 2^(s·scale·log2(e) − lse2)``,
+    ``ds = p∘(mm(do, v_tᵀ) − di)``, and the tile's ``mm(ds, k_t)`` added to
+    ``dq`` in f32; scaled once at the end."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    lse2, scale2 = _lse2_scale2(l, m, scale)
+    dq = torch.zeros_like(q)
+    for k0 in range(0, k.shape[-2], tile):
+        sl = slice(k0, k0 + tile)
+        kt, vt = k[..., sl, :], v[..., sl, :]
+        p = torch.exp2(mm(q, kt.transpose(-1, -2)) * scale2 - lse2[..., None])
+        ds = p * (mm(do, vt.transpose(-1, -2)) - di[..., None].float())
+        dq = dq + mm(ds, kt)
+    return dq * scale

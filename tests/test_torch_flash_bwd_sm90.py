@@ -51,8 +51,8 @@ def _operands(sq, sk, seed, d=64):
                  id="dq-dtype1-64-p2p_flash_attn_bwd_dq_bf16_sm90-flash_bwd_sm90"),
     pytest.param("dkv", TB, 40, "p2p_flash_attn_bwd_dkv_bf16_sm90", "flash_bwd_sm90",
                  id="dkv-dtype2-40-p2p_flash_attn_bwd_dkv_bf16-flash_attn_bwd"),
-    pytest.param("dq", torch.float32, 64, "p2p_flash_attn_bwd_dq", "flash_attn_bwd",
-                 id="dq-dtype3-64-p2p_flash_attn_bwd_dq-flash_attn_bwd"),
+    pytest.param("dq", torch.float32, 64, "p2p_flash_attn_bwd_dq_f32_sm90",
+                 "flash_bwd_tf32_sm90", id="dq-dtype3-64-p2p_flash_attn_bwd_dq-flash_attn_bwd"),
     pytest.param("dkv", torch.float32, 40, "p2p_flash_attn_bwd_dkv", "flash_attn_bwd",
                  id="dkv-dtype4-40-p2p_flash_attn_bwd_dkv-flash_attn_bwd"),
     pytest.param("dq", TB, 40, "p2p_flash_attn_bwd_dq_bf16_sm90", "flash_bwd_sm90",
@@ -87,13 +87,14 @@ def test_sm90_backward_source_runs_on_wgmma_and_tma():
 def test_mma_sync_bf16_passes_left_only_at_d40():
     """``flash_attn_bwd.cu`` has no bf16 (``mma.sync``) pass left, at d = 40
     or any other head dim (bf16 at both head dims is the sm90 source's),
-    and instantiates its f32 passes at 40 and 64."""
+    and instantiates its f32 passes at 40 only (f32 at d = 64 is
+    ``flash_bwd_tf32_sm90.cu``'s)."""
     src = (build.CSRC / "flash_attn_bwd.cu").read_text()
     assert "launch_bf16" not in src
     assert "_bf16_kernel" not in src
     assert "bf16*" not in src
     assert not re.findall(r'extern "C" int (p2p_flash_attn_bwd_\w*bf16\w*)\(', src)
-    assert sorted(set(re.findall(r"launch_f32<(\d+)>\(", src))) == ["40", "64"]
+    assert sorted(set(re.findall(r"launch_f32<(\d+)>\(", src))) == ["40"]
     assert not [e for e in flash_bwd.ENTRIES if e.endswith("_bf16")]
 
 

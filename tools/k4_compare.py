@@ -4,16 +4,20 @@ same inputs, each pass timed in turns (other, this, this, other):
 
 - f32 at d = 40 (SD-1.4's gradient sites, (1, 8, 4096, 40)) and at d = 64
   (SD-2.1's three, (1, 5, 9216, 64), (1, 10, 2304, 64) and
-  (1, 5, 4096, 64)): both checkouts' ``csrc/flash_attn_bwd.cu``, dq, dk
-  and dv bit for bit;
-- bf16 at the same four sites: the other checkout's entry for it (its
-  ``csrc/flash_attn_bwd.cu`` bf16 entry where that has one and, at d = 64,
-  no ``csrc/flash_bwd_sm90.cu`` stands beside it; else its sm90 entry)
-  against this checkout's route (``kernels.flash_bwd.entry_for``): dq, dk
-  and dv bit for bit where both checkouts run the entry of the same name,
-  else within ``BF16_TOL`` of each other's and of the plain passes' largest
-  magnitude (their tiles differ), each bitwise across two launches; SDPA's
-  backward alone beside them, eager and as a replayed CUDA graph;
+  (1, 5, 4096, 64)), and bf16 at the same four sites: the other checkout's
+  entry for each (in f32 its ``csrc/flash_attn_bwd.cu`` entry, or at d = 64
+  its ``csrc/flash_bwd_tf32_sm90.cu`` one where it has that source; in bf16
+  its ``csrc/flash_attn_bwd.cu`` bf16 entry where that has one and, at
+  d = 64, no ``csrc/flash_bwd_sm90.cu`` stands beside it, else its sm90
+  entry) against this checkout's route (``kernels.flash_bwd.entry_for``):
+  dq, dk and dv bit for bit where both checkouts run the entry of the same
+  name, else within ``TC_TOL`` (f32) or ``BF16_TOL`` (bf16) of each
+  other's and of the plain passes' largest magnitude (their tiles differ),
+  each bitwise across two launches; SDPA's backward alone in the row's
+  dtype beside them, eager and as a replayed CUDA graph;
+- the f32 d = 64 passes of this checkout at each SD-2.1 shape beside the
+  same passes at the most heads whose grid fits one round on the card's
+  SMs: what the last, short round of blocks costs;
 - the host's µs a call of the bf16 d = 64 passes at a shape whose device
   time is short, (1, 2, 300, 64) with Sk = 70: C entry against C entry,
   and wrapper against wrapper (each checkout's in a process of its own)
@@ -87,12 +91,13 @@ def wrapper_us(checkout: str) -> float:
 
 def other_entries(checkout: str):
     """``{(pass, dtype, d): (library, function)}`` of the other checkout,
-    built here: its ``flash_attn_bwd.cu`` entries and, for bf16, its
+    built here: its ``flash_attn_bwd.cu`` entries; for f32 at d = 64 its
+    ``flash_bwd_tf32_sm90.cu`` ones where it has that source; for bf16 its
     ``flash_bwd_sm90.cu`` ones where it has that source, except at d = 40
     where its ``flash_attn_bwd.cu`` still has a bf16 entry."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {}
-    for name in ("flash_attn_bwd", "flash_bwd_sm90"):
+    for name in ("flash_attn_bwd", "flash_bwd_sm90", "flash_bwd_tf32_sm90"):
         src = os.path.join(checkout, "p2p_tpu_torch", "csrc", f"{name}.cu")
         if not os.path.exists(src):
             continue
@@ -109,6 +114,8 @@ def other_entries(checkout: str):
             if dtype == torch.bfloat16 and "flash_bwd_sm90" in libs and (
                     d == 64 or not hasattr(lib, f"p2p_flash_attn_bwd_{p}_bf16")):
                 lib, sfx = libs["flash_bwd_sm90"], "_bf16_sm90"
+            if dtype == torch.float32 and d == 64 and "flash_bwd_tf32_sm90" in libs:
+                lib, sfx = libs["flash_bwd_tf32_sm90"], "_f32_sm90"
             fn = getattr(lib, f"p2p_flash_attn_bwd_{p}{sfx}")
             fn.argtypes = [ctypes.c_void_p] * (9 if p == "dkv" else 8) + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_void_p]
@@ -162,6 +169,39 @@ def host_us(checkout: str, other) -> dict:
     return host
 
 
+def rounds_ms(gen) -> list:
+    """What the last, short round of blocks costs the f32 d = 64 passes
+    (one block of 128 rows an SM): each path shape's dkv and dq ms beside
+    those at the most heads whose grid fits one round on the card's SMs
+    (``full_round_heads``), with the rounds the shape's grid takes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for b, h, s, d in SITES:
+        if d != 64:
+            continue
+        per_head = -(-s // 128)
+        heads1 = max(1, sms // per_head)
+        row = {"shape": [b, h, s, d], "blocks": h * per_head, "sms": sms,
+               "rounds": h * per_head / sms, "full_round_heads": heads1}
+        for key, heads in (("ms", h), ("full_round_ms", heads1)):
+            q, k, v, do = (torch.randn((b, heads, s, d), generator=gen, device="cuda")
+                           for _ in range(4))
+            o, l, m = K.flash_attention_residuals_plain(q, k, v, d ** -0.5)
+            di = (o * do).sum(-1)
+            row[key] = {
+                "dkv": cs.cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
+                    q, k, v, do, l, m, di, d ** -0.5), 10),
+                "dq": cs.cuda_ms(torch, lambda: K.flash_attention_bwd_dq(
+                    q, k, v, do, l, m, di, d ** -0.5), 10)}
+        print(f"K4 f32 d=64 {row['shape']}: {row['blocks']} blocks on {sms} SMs "
+              f"({row['rounds']:.2f} rounds): dkv {row['ms']['dkv']:.4f}, dq "
+              f"{row['ms']['dq']:.4f} ms; at {heads1} heads ({heads1 * per_head} blocks, "
+              f"one round) dkv {row['full_round_ms']['dkv']:.4f}, dq "
+              f"{row['full_round_ms']['dq']:.4f} ms", flush=True)
+        out.append(row)
+    return out
+
+
 def main(argv) -> int:
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -169,6 +209,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("k4_compare: no CUDA device is visible", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
     other = other_entries(argv[1])
     card = cs.card_line()
     print(card)
@@ -211,6 +252,7 @@ def main(argv) -> int:
         else:
             p_dk, p_dv = K.flash_attention_bwd_dkv_plain(q, k, v, do, l, m, di, scale)
             plain = (K.flash_attention_bwd_dq_plain(q, k, v, do, l, m, di, scale), p_dk, p_dv)
+            tol = cs.BF16_TOL if dtype == torch.bfloat16 else cs.TC_TOL
             errs = {}
             for i, what in enumerate(("dq", "dk", "dv")):
                 for key, a, ref in (("this_vs_other", got["this"][i], got["other"][i]),
@@ -218,8 +260,8 @@ def main(argv) -> int:
                                     ("other_vs_plain", got["other"][i], plain[i])):
                     e = cs.max_err(torch, a, ref) / ref.double().abs().max().item()
                     errs[f"{what} {key}"] = e
-                    if e > cs.BF16_TOL:
-                        bad.append(f"{tag} {what} {key}: {e:.3g} > {cs.BF16_TOL}")
+                    if e > tol:
+                        bad.append(f"{tag} {what} {key}: {e:.3g} > {tol}")
             row["errors"] = errs
             verdict += "; " + ", ".join(f"{key} {e:.3g}" for key, e in errs.items())
         if not all(torch.equal(x, y) for x, y in zip(got["this"], again)):
@@ -230,7 +272,7 @@ def main(argv) -> int:
             for p in ("dkv", "dq"):
                 times[f"{name}_{p}"].append(cs.cuda_ms(torch, lambda: passes(name, (p,)), iters))
         row["ms"] = times
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 or d == 64:
             row["sdpa_bwd_ms"], row["sdpa_fwd_bwd_ms"] = cs.sdpa_times(torch, F, q, k, v, do,
                                                                        scale, iters)
             row["sdpa_bwd_graph_ms"] = cs.sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale, iters)
@@ -249,9 +291,11 @@ def main(argv) -> int:
               f"{['%.4f' % t for t in times['this_dkv']]}, dq this "
               f"{['%.4f' % t for t in times['this_dq']]}){extra}", flush=True)
     host = host_us(argv[1], other)
+    rounds = rounds_ms(gen)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "k4_compare.json"), "w") as f:
-        json.dump({"card": card, "rows": rows, "host_us": host, "failures": bad}, f, indent=1)
+        json.dump({"card": card, "rows": rows, "host_us": host, "rounds": rounds,
+                   "failures": bad}, f, indent=1)
     for line in bad:
         print("FAIL", line)
     return 1 if bad else 0
