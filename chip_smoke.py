@@ -28,7 +28,8 @@ Phases, each of which raises on failure:
    function (``scaled_dot_product_attention`` forward, or its backward; for
    K2, which has none, SDPA at its shapes as a yardstick); K2 also as a
    replayed CUDA graph (its device time without the host's); the d = 40
-   kernel's occupancy (blocks per SM);
+   kernel's occupancy (blocks per SM); K1 at d = 512 with the key split
+   ``kernels.flash.d512_splits`` gives each call (and its merge);
 3. the main path: random SD-1.4 weights at full width from seed 0, 512²,
    2 prompts, DDIM 50 steps, CFG 7.5, an ``attention_replace`` edit
    (store off) with ``kernels=KernelConfig()``; the launch counts must be
@@ -63,11 +64,15 @@ Phases, each of which raises on failure:
    version and across two launches, timed beside ``torch.sum``; K3 and both
    K4 passes in bf16 at (1, 8, 4096, 40) and
    ragged (S = 4100; Sq = 300 with Sk = 70), K3's ``m`` and ``l`` within
-   ``TC_TOL`` relative, and K1 in bf16 at d = 512, (1, 1, 4096, 512) and
-   ragged, each within ``BF16_TOL`` of its bf16 plain version's largest
-   magnitude and bitwise across two launches, timed beside SDPA in bf16
-   (forward, or for K4 the backward alone, with forward and backward
-   together beside it) and the bf16 bound; then
+   ``TC_TOL`` relative, and K1 in bf16 at d = 512
+   (``flash_d512_sm90_kernel``: wgmma and TMA, its SASS and ptxas checked
+   as phase 8's; with its key split and merge), (1, 1, 4096, 512), (1, 1,
+   9216, 512) and ragged, each within ``BF16_TOL`` of its bf16 plain
+   version's largest magnitude and bitwise across two launches, timed
+   beside SDPA in bf16 (forward, or for K4 the backward alone, with forward
+   and backward together beside it) and the bf16 bound; the key-split sweep
+   of both d = 512 kernels at the 768² VAE's shapes (``d512_split_sweep``:
+   each split of ``D512_SWEEP_SPLITS`` timed beside the rule's pick); then
    ``invert(dtype=torch.bfloat16)`` at phase 4's settings on the same
    image, with exact launch counts (bf16 K1 at d = 40 for every forward
    without gradient and the encode's bf16 K1 at d = 512, one f32 K1 for the
@@ -256,14 +261,91 @@ def vae_head_dim(cfg) -> int:
     return cfg.vae.base_channels * cfg.vae.channel_mults[-1]
 
 
-def vae_merges(torch, pipe, batch: int) -> int:
-    """Merge launches of one K1 call at the VAE's mid attention, d = 512:
-    1 when the card's SM count makes the call split its keys, else 0."""
-    from p2p_tpu_torch.kernels.flash import D512_TILE, key_splits
+def vae_merges(torch, pipe, batch: int, dtype=None) -> int:
+    """Merge launches of one K1 call at the VAE's mid attention, d = 512,
+    in ``dtype`` (f32 by default): 1 when the card's SM count makes the call
+    split its keys (``kernels.flash.d512_splits``), else 0."""
+    s = pipe.config.latent_size ** 2
+    return int(d512_split_count(torch, dtype or torch.float32, batch, s, s) > 1)
 
-    tiles = -(-pipe.config.latent_size ** 2 // D512_TILE)
+
+def d512_split_count(torch, dtype, bh: int, sq: int, sk: int) -> int:
+    """The key splits a d = 512 K1 call of ``bh`` batch·heads takes on this
+    card."""
+    from p2p_tpu_torch.kernels.flash import d512_splits
+
+    return d512_splits(dtype, bh, sq, sk, torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+
+
+#: Key splits timed at the VAE's 768² shapes for each dtype's d = 512 kernel.
+D512_SWEEP_SPLITS = (1, 2, 3, 4, 5, 6, 8, 9, 12, 16)
+
+
+def d512_split_sweep(torch, F):
+    """Both d = 512 kernels (f32 ``flash_d512_kernel``, bf16
+    ``flash_d512_sm90_kernel``) at the 768² VAE's (1, 1, 9216, 512) and (2, 1,
+    9216, 512), through their C entries with each key split of
+    ``D512_SWEEP_SPLITS`` (the merge included), beside the split
+    ``kernels.flash.d512_splits`` picks, the rule's cost of each (rounds ×
+    the longest split's key tiles, plus the merge's weight) and SDPA in the
+    same dtype: the timings the rule is set from. Every split's output is
+    held against the unsplit one (``TC_TOL`` in f32, ``BF16_TOL`` of the
+    largest magnitude in bf16)."""
+    from p2p_tpu_torch.kernels import build, flash
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return int(key_splits(tiles * batch, tiles, sms) > 1)
+    gen = torch.Generator("cuda").manual_seed(12)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        entry = flash.entry_for(dtype, 512)
+        lib, fn = flash.forward_entry(entry)
+        tile = flash.D512_KEY_TILE[dtype]
+        for b in (1, 2):
+            shape = (b, 1, 9216, 512)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            s, scale = shape[2], 512 ** -0.5
+            blocks, key_tiles = b * -(-s // flash.D512_TILE), -(-s // tile)
+            pick = flash.d512_splits(dtype, b, s, s, sms)
+            times, costs, ref = {}, {}, None
+            for n in sorted(set(D512_SWEEP_SPLITS) | {pick}):
+                out = torch.empty_like(q)
+                part = (torch.empty(n * b * s * (512 + 2), device="cuda")
+                        if n > 1 else None)
+
+                def call():
+                    build.check(lib, fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        out.data_ptr(), None, None,
+                                        None if part is None else part.data_ptr(), n, b,
+                                        s, s, 512, scale, stream), entry)
+
+                call()
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = out.clone()
+                elif dtype == torch.float32:
+                    if max_err(torch, out, ref) > TC_TOL:
+                        raise RuntimeError(f"d = 512 f32 {shape}, {n} splits: differs "
+                                           "from the unsplit output")
+                else:
+                    rel_err(torch, out, ref, f"d = 512 bf16 {shape}, {n} splits", BF16_TOL)
+                times[n] = cuda_ms(torch, call, 5 if dtype == torch.float32 else 10)
+                costs[n] = (math.ceil(blocks * n / sms) * math.ceil(key_tiles / n)
+                            + (flash.D512_MERGE[dtype] * n * blocks / sms if n > 1 else 0.0))
+            best = min(times, key=times.get)
+            sdpa = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                           5 if dtype == torch.float32 else 10)
+            rows.append({"dtype": str(dtype).split(".")[-1], "shape": list(shape),
+                         "blocks": blocks, "key_tiles": key_tiles, "pick": pick,
+                         "fastest": best, "ms": times, "rule_cost": costs,
+                         "sdpa_ms": sdpa})
+            print(f"d = 512 splits {rows[-1]['dtype']} {shape} ({blocks} blocks, {key_tiles} "
+                  f"key tiles of {tile}): rule picks {pick} (cost {costs[pick]:.1f}), fastest "
+                  f"{best}; ms " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()) +
+                  f"; sdpa {sdpa:.4f}")
+    return rows
 
 
 def k1_phases(torch, K, F):
@@ -271,7 +353,9 @@ def k1_phases(torch, K, F):
     2 on the edit paths, batch 1 in the inversion (its forwards without
     gradient, and the VAE encode), and SD-2.1's VAE at 96² latent pixels,
     (2, 1, 9216, 512) in the edit and (1, 1, 9216, 512) in the inversion
-    (no key split: 144 one-SM blocks), each twice for bitwise-equal outputs;
+    (288 and 144 one-SM blocks, whose short last round the key split
+    fills), each twice for bitwise-equal outputs, the d = 512 calls with the
+    key splits ``kernels.flash.d512_splits`` gives them (merge included);
     then both kernels at ragged lengths (S = 4100, and Sq = 300 with
     Sk = 70), the d = 512 one also with K3's residuals."""
     gen = torch.Generator("cuda").manual_seed(1)
@@ -290,13 +374,15 @@ def k1_phases(torch, K, F):
         if not torch.equal(out, K.flash_attention(q, k, v, scale)):
             raise RuntimeError(f"K1 {shape}: two launches differ")
         rows.append({
-            "shape": list(shape), "max_abs_err": err,
+            "shape": list(shape), "max_abs_err": err, "key_splits": d512_split_count(
+                torch, q.dtype, b * h, s, s) if d == 512 else 1,
             "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), iters),
             "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 3),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale), iters),
             **bound(4.0 * b * h * s * s * d, 4 * 4 * q.numel(), True)})
-        print(f"K1 {shape}: max|Δ| {err:.3g}  kernel {rows[-1]['ms']:.4f} ms  "
+        print(f"K1 {shape} ({rows[-1]['key_splits']} key splits): max|Δ| {err:.3g}  "
+              f"kernel {rows[-1]['ms']:.4f} ms  "
               f"plain {rows[-1]['plain_ms']:.4f} ms  sdpa "
               f"{rows[-1]['library_ms']:.4f} ms  {bound_text(rows[-1])}")
     for sq, sk in ((4100, 4100), (300, 70)):
@@ -512,11 +598,16 @@ def sdpa_times(torch, F, q, k, v, do, scale: float, iters: int):
 
 #: The libraries written on Hopper's own instructions (wgmma, TMA), each
 #: with its kernels' instantiations: "name" or "name<head dim>".
-SM90_LIBRARIES = {"flash_fwd_sm90": ("flash_d64_sm90_kernel",),
+SM90_LIBRARIES = {"flash_fwd_sm90": ("flash_d64_sm90_kernel", "flash_d512_sm90_kernel"),
                   "flash_bwd_sm90": tuple(f"flash_bwd_{p}_sm90_kernel<{d}>"
                                           for p in ("dkv", "dq") for d in (40, 64)),
                   "flash_bwd_tf32_sm90": ("flash_bwd_dkv_tf32_sm90_kernel",
                                           "flash_bwd_dq_tf32_sm90_kernel")}
+
+
+#: Kernels of those libraries that are not on wgmma: the d = 512 key
+#: split's merge (``csrc/flash_merge.cuh``).
+SM90_PLAIN_KERNELS = {"flash_fwd_sm90": ("flash_merge_kernel",)}
 
 
 def kernel_instance(symbol: str):
@@ -537,8 +628,9 @@ def sm90_sass(build, library: str) -> dict:
     """Instruction counts in the SASS of a built library of
     ``SM90_LIBRARIES`` (``cuobjdump -sass``), in all and by kernel
     instantiation (``by_kernel``): raises unless it holds exactly the
-    instantiations listed there and each runs on Hopper's wgmma (HGMMA) fed
-    by TMA (UTMALDG), with no ``mma.sync`` (HMMA)."""
+    instantiations listed there (and in ``SM90_PLAIN_KERNELS``) and each
+    listed in ``SM90_LIBRARIES`` runs on Hopper's wgmma (HGMMA) fed by TMA
+    (UTMALDG), with no ``mma.sync`` (HMMA)."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -554,11 +646,13 @@ def sm90_sass(build, library: str) -> dict:
                  for name, body in zip(parts[1::2], parts[2::2])}
     counts = {**count(sass), "by_kernel": by_kernel}
     print(f"{library} SASS: {counts}")
-    if sorted(by_kernel) != sorted(SM90_LIBRARIES[library]):
+    expected = SM90_LIBRARIES[library] + SM90_PLAIN_KERNELS.get(library, ())
+    if sorted(by_kernel) != sorted(expected):
         raise RuntimeError(f"{library}: kernels {sorted(by_kernel)}, expected "
-                           f"{sorted(SM90_LIBRARIES[library])}")
+                           f"{sorted(expected)}")
     for name, c in by_kernel.items():
-        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+        if name in SM90_LIBRARIES[library] and (not c["HGMMA"] or not c["UTMALDG"]
+                                                or c["HMMA"]):
             raise RuntimeError(f"{library} {name} is not on wgmma and TMA: {c}")
     return counts
 
@@ -586,11 +680,17 @@ def check_no_spills(report: dict) -> dict:
     instantiation's registers and spilled bytes."""
     import re
 
+    import re
+
     kernels = {}
     for name, expected in SM90_LIBRARIES.items():
         if name not in report:
             continue
         text = report[name]["ptxas"]
+        # ptxas's note that it serialized a kernel's wgmma (C7515): reported,
+        # not a failure.
+        serialized = {kernel_instance(f) for f in
+                      re.findall(r"C7515\).*?function '([^']+)'", text)}
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
         if any(spills):
             raise RuntimeError(f"{name}: ptxas spilled ({spills} bytes)")
@@ -598,8 +698,10 @@ def check_no_spills(report: dict) -> dict:
         missing = [k for k in expected if k not in found]
         if missing:
             raise RuntimeError(f"{name}: no ptxas report of {missing}")
+        for k, v in found.items():
+            v["wgmma_serialized"] = k in serialized
         kernels.update(found)
-    print(f"sm90 kernels, registers and spilled bytes: {kernels}")
+    print(f"sm90 kernels, registers, spilled bytes and serialized wgmma: {kernels}")
     return kernels
 
 
@@ -1040,22 +1142,35 @@ def k34_bf16_phases(torch, K, F):
 
 
 def k1_d512_bf16_phases(torch, K, F):
-    """K1 in bf16 at d = 512: the bf16 VAE encode of the inversion, (1, 1,
-    4096, 512) and, at SD-2.1 768-v, (1, 1, 9216, 512), then the ragged
-    lengths S = 4100 and Sq = 300 with Sk = 70 (also with K3's residuals
-    there); within ``BF16_TOL`` of the bf16 plain version's largest
-    magnitude (the residuals within ``TC_TOL``), bitwise across two
-    launches; timed with its key-split merge (if any) beside SDPA in
-    bf16."""
+    """K1 in bf16 at d = 512 (``flash_d512_sm90_kernel``: wgmma and TMA,
+    with the key split ``kernels.flash.d512_splits`` gives each call and
+    its merge): the bf16 VAE encode of the inversion, (1, 1, 4096, 512)
+    and, at SD-2.1 768-v, (1, 1, 9216, 512), then the ragged lengths S =
+    4100 and Sq = 300 with Sk = 70 (also with K3's residuals there); within
+    ``BF16_TOL`` of the bf16 plain version's largest magnitude (the
+    residuals within ``TC_TOL``), bitwise across two launches; timed with
+    its merge (if any) beside SDPA in bf16 and the bound. Then q = k at
+    (1, 1, 9216, 512) and (1, 1, 300, 512): each row's own key dominates, so
+    a row reads essentially one row of V, and a K or V chunk read from the
+    wrong stage of the kernel's ring would miss by O(1), not by a rounding;
+    held within ``BF16_TOL`` too."""
     gen = torch.Generator("cuda").manual_seed(6)
     rows = []
     d = 512
+    for s in (9216, 300):
+        k = torch.randn((1, 1, s, d), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((1, 1, s, d), generator=gen, device="cuda").bfloat16()
+        rel_err(torch, K.flash_attention(k, k, v, d ** -0.5),
+                K.flash_attention_plain(k, k, v, d ** -0.5),
+                f"K1 bf16 d=512 q = k, S={s} ({d512_split_count(torch, torch.bfloat16, 1, s, s)} "
+                "key splits)", BF16_TOL)
     for sq, sk in ((4096, 4096), (4100, 4100), (300, 70), (9216, 9216)):
         q = torch.randn((1, 1, sq, d), generator=gen, device="cuda").bfloat16()
         k, v = (torch.randn((1, 1, sk, d), generator=gen, device="cuda").bfloat16()
                 for _ in range(2))
         scale = d ** -0.5
-        label = f"K1 bf16 d=512 Sq={sq} Sk={sk}"
+        n = d512_split_count(torch, torch.bfloat16, 1, sq, sk)
+        label = f"K1 bf16 d=512 Sq={sq} Sk={sk} ({n} key splits)"
         out = K.flash_attention(q, k, v, scale)
         torch.cuda.synchronize()
         err = rel_err(torch, out, K.flash_attention_plain(q, k, v, scale), label, BF16_TOL)
@@ -1068,10 +1183,13 @@ def k1_d512_bf16_phases(torch, K, F):
             rel_err(torch, got[0], want[0], f"K3 bf16 d=512 Sq={sq} Sk={sk} out", BF16_TOL)
             for name, a, w in zip(("l", "m"), got[1:], want[1:]):
                 rel_err(torch, a, w, f"K3 bf16 d=512 Sq={sq} Sk={sk} {name}", TC_TOL)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got, K.flash_attention_residuals(q, k, v, scale))):
+                raise RuntimeError(f"K3 {label}: two launches differ")
             continue
         rows.append({
-            "shape": [1, 1, sq, d], "max_abs_err": err,
-            "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), 20 if sq == 4096 else 5),
+            "shape": [1, 1, sq, d], "max_abs_err": err, "key_splits": n,
+            "ms": cuda_ms(torch, lambda: K.flash_attention(q, k, v, scale), 20),
             "plain_ms": cuda_ms(torch, lambda: K.flash_attention_plain(q, k, v, scale), 3),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale), 20),
@@ -1254,7 +1372,8 @@ def inversion_path(torch, K, pipe, dtype=None, steps=STEPS, tag=None):
         want.update({"flash_attn": forwards + 2, "flash_attn_residuals": n * n_grad,
                      "flash_attn_bwd_dq": n * n_grad, "flash_attn_bwd_dkv": n * n_grad})
         want_dims[f"K1 f32 d={dv}"] = 2
-    want["flash_merge"] = 2 * vae_merges(torch, pipe, 1)
+    # the encode in the inversion's dtype, the reconstruction's decode in f32
+    want["flash_merge"] = vae_merges(torch, pipe, 1, dtype) + vae_merges(torch, pipe, 1)
     dims = K.head_dim_launch_counts()
     if counts != want or dims != want_dims:
         raise RuntimeError(f"{tag} launch counts {counts} {dims}, expected {want} "
@@ -1551,7 +1670,8 @@ def main() -> int:
     k1_bf16 = k1_bf16_phases(torch, K, F)
     k2_bf16 = k2_phases(torch, K, F, torch.bfloat16)
     k34_bf16 = k34_bf16_phases(torch, K, F)
-    k1_bf16 += k1_d512_bf16_phases(torch, K, F)
+    k1_d512_bf16 = k1_d512_bf16_phases(torch, K, F)
+    d512_splits = d512_split_sweep(torch, F)
     window_sums = window_sum_phase(torch, K)
     from p2p_tpu_torch.models.config import SD21, SD21_BASE
 
@@ -1633,17 +1753,31 @@ def main() -> int:
                      [k34["K4_dkv"]]),
         kernel_entry("flash_attn_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:330", counts16["flash_attn_bf16"], k1_bf16,
-                     units="tensor cores, bf16 (flash_d40_bf16_kernel at d = 40, "
-                           "flash_d512_bf16_kernel at d = 512; attn_bf16.cuh)",
+                     units="tensor cores, bf16 (flash_d40_bf16_kernel; attn_bf16.cuh)",
                      replay_launches=replay16_counts["flash_attn_bf16"],
                      inversion_bf16_launches=inv16_counts["flash_attn_bf16"],
                      replay_of_bf16_artifact_launches=replay16i_counts["flash_attn_bf16"],
-                     merge_launches={"inversion_bf16": inv16_counts["flash_merge"]},
-                     note="K1 with bf16 q, k, v and output: at d = 40 (the head "
-                          "row, launches from the bf16 edit) and at d = 512 (the "
-                          "bf16 inversion's VAE encode, one of inversion_bf16_"
-                          "launches; its ms includes the key-split merge); "
-                          "library_ms is SDPA in bf16"),
+                     note="K1 with bf16 q, k, v and output at d = 40 (launches from "
+                          "the bf16 edit; inversion_bf16_launches counts every bf16 "
+                          "K1, the d = 512 encode's among them); library_ms is SDPA "
+                          "in bf16"),
+        kernel_entry("flash_attn_d512_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
+                     "p2p_tpu/models/nn.py:330",
+                     inversion16["launches_by_head_dim"]["K1 bf16 d=512"], k1_d512_bf16,
+                     units="tensor cores, bf16: wgmma (m64n64k16 Q K^T over each "
+                           "warpgroup's 64 keys, m64n256k16 P V over its 256 columns, "
+                           "both from shared memory) fed by TMA, and the key split's "
+                           "flash_merge_kernel<bf16> (flash_d512_sm90_kernel)",
+                     sd21_inversion_bf16_launches=dims_inv21_16["K1 bf16 d=512"],
+                     merge_launches={"inversion_bf16": inv16_counts["flash_merge"],
+                                     "sd21_inversion_bf16":
+                                         sd21_inv["bf16"]["launches"]["flash_merge"]},
+                     note="K1 in bf16 at d = 512, the bf16 inversions' VAE encode "
+                          "(launches from the SD-1.4 bf16 inversion); ms includes "
+                          "the key-split merge (key_splits per row); merge_launches "
+                          "counts the inversion's merges of both dtypes (the f32 "
+                          "decode's too); library_ms is SDPA in bf16",
+                     sass=sass, ptxas=sm90_ptxas.get("flash_d512_sm90_kernel")),
         kernel_entry("flash_attn_residuals_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:343", inv16_counts["flash_attn_residuals_bf16"],
                      [k34_bf16["K3"]],
@@ -1738,6 +1872,7 @@ def main() -> int:
                            "fold_kernel<bf16>",
                      note="as fused_edit_d64, in bf16; launches from the sd21 bf16 edit"),
     ], "main_path": path, "inversion": inversion, "replay": replay, "sd21": sd21,
+        "d512_key_splits": d512_splits,
         "replay_launches": replay_counts, "replay_bf16_launches": replay16_counts,
         "replay_bf16_of_bf16_artifact_launches": replay16i_counts,
         "card": card}

@@ -50,7 +50,7 @@
 // rows x keys and rows x columns let each operand read from shared memory
 // feed several FMAs. Bound by the CUDA cores' f32 rate (67 TFLOP/s).
 //
-// flash_d512_kernel (d = 512), on the tensor cores in 3xTF32, bound by
+// flash_d512_kernel (d = 512, f32), on the tensor cores in 3xTF32, bound by
 // 3 * 4*S^2*d flops per head at 495 TFLOP/s. A 64-row query tile (132 KB)
 // stays in shared memory; K and V pass through a ring of three 17 KB slots
 // filled by cp.async two chunks ahead of the compute: per 64-key tile,
@@ -62,14 +62,14 @@
 // that read it do not split it again. Each chunk's product is taken in a
 // fresh accumulator and added to the running S and O in f32: summed over
 // all 4096 keys in one accumulator, the round-toward-zero bias reached 5e-6
-// on outputs of magnitude 0.1. One block fills an SM, and
-// (1, 1, 4096, 512) has only 64 query tiles for 132 SMs, so the keys are
-// split among gridDim.z blocks: each writes its unnormalized partial output
-// with its row max and sum, and flash_merge_kernel combines them in a fixed
-// order, o = sum_i exp(m_i - m) o_i / sum_i exp(m_i - m) l_i (K3's residual
-// convention, as ring attention merges), so the result does not vary from
-// run to run. The wrapper (p2p_tpu_torch/kernels/flash.py: key_splits)
-// picks the split and allocates the partials.
+// on outputs of magnitude 0.1. One block fills an SM, so when the query
+// tiles leave SMs idle (too few for one round, as (1, 1, 4096, 512)'s 64,
+// or a short last round, as (1, 1, 9216, 512)'s 144 blocks on 132 SMs) the
+// keys are split among gridDim.z blocks: each writes its unnormalized
+// partial output with its row max and sum, and flash_merge_kernel
+// (flash_merge.cuh, shared with the bf16 kernel) combines them in a fixed
+// order. The wrapper (p2p_tpu_torch/kernels/flash.py: key_splits) picks
+// the split and allocates the partials.
 //
 // flash_d40_bf16_kernel (d = 40, bf16 q/k/v/o: K1 at the U-Net's 64x64-pixel
 // self sites of a bf16 edit, (4, 8, 4096, 40)), one bf16 tensor-core pass a
@@ -85,21 +85,15 @@
 // 40) under the bf16 inversion's gradient (bound 0.022 ms), l the sum of the
 // unrounded p as the library sums it.
 //
-// flash_d512_bf16_kernel (d = 512, bf16: K1 in the bf16 inversion's VAE
-// encode, (1, 1, 4096, 512)), flash_d512_kernel's design on bf16 operands:
-// the Q tile resident in shared memory, K and V chunks streamed through a
-// cp.async ring, eight warps owning 64 output columns each, the unnormalized
-// P rounded to bf16 before P V, the same key split with the f32 partials
-// merged by flash_merge_kernel<bf16>. Bound: 4*S^2*d flops per head at 989
-// TFLOP/s, 0.035 ms (the bytes take 0.005 ms).
-//
-// K1 and K3 in bf16 at d = 64 (SD-2.1's self sites) are not here: they run
-// on wgmma and TMA in flash_fwd_sm90.cu, behind an entry of the same
-// signature as p2p_flash_attn_fwd_bf16, which refuses d = 64.
+// K1 and K3 in bf16 at d = 64 (SD-2.1's self sites) and d = 512 (the bf16
+// VAE encode) are not here: they run on wgmma and TMA in flash_fwd_sm90.cu,
+// behind an entry of the same signature as p2p_flash_attn_fwd_bf16, which
+// refuses both.
 //
 // No kernel here uses atomics: two launches give the same bits.
 #include "attn_bf16.cuh"
 #include "attn_tile.cuh"
+#include "flash_merge.cuh"  // flash_merge_kernel, MergeParts, launch_flash_merge
 #include "mma_tf32.cuh"
 
 using namespace p2p;
@@ -922,48 +916,6 @@ flash_d512_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Four values of an output row: f32 as they are, bf16 rounded once.
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 x) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-}
-
-// One block of D / 4 threads per row: o = sum_i w_i o_i / sum_i w_i l_i with
-// w_i = exp(m_i - max_i m_i), the splits taken in order; the f32 partials
-// of either d = 512 kernel, o in its dtype OutT.
-template <class OutT>
-__global__ void __launch_bounds__(d512::D / 4)
-flash_merge_kernel(const float* __restrict__ po, const float* __restrict__ pm,
-                   const float* __restrict__ pl, OutT* __restrict__ o,
-                   float* __restrict__ m_out, float* __restrict__ l_out,
-                   int rows, int nsplit) {
-  constexpr int D = d512::D;
-  const size_t row = blockIdx.x;
-  const int c = threadIdx.x * 4;
-  float mx = -INFINITY;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pm[s * (size_t)rows + row]);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  float l = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const size_t i = s * (size_t)rows + row;
-    const float w = expf(pm[i] - mx);
-    l += w * pl[i];
-    const float4 x = *reinterpret_cast<const float4*>(po + i * D + c);
-    acc.x += w * x.x;
-    acc.y += w * x.y;
-    acc.z += w * x.z;
-    acc.w += w * x.w;
-  }
-  const float inv = 1.f / l;
-  store4(o + row * D + c, make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
-  if (m_out != nullptr && threadIdx.x == 0) {
-    m_out[row] = mx;
-    l_out[row] = l;
-  }
-}
-
 int launch_d512(const float* q, const float* k, const float* v, float* o,
                 float* m, float* l, float* part, int nsplit, int bh, int sq,
                 int sk, float scale, cudaStream_t stream) {
@@ -976,16 +928,13 @@ int launch_d512(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return err;
   dim3 grid((sq + d512::BQ - 1) / d512::BQ, bh, nsplit);
   const size_t rows = (size_t)bh * sq;
-  float* po = nsplit > 1 ? part : o;
-  float* pm = nsplit > 1 ? part + nsplit * rows * d512::D : m;
-  float* pl = nsplit > 1 ? pm + nsplit * rows : l;
-  flash_d512_kernel<<<grid, d512::NT, d512::SMEM, stream>>>(q, k, v, po, pm, pl,
-                                                            sq, sk, scale);
+  const MergeParts p(part, nsplit, rows);
+  flash_d512_kernel<<<grid, d512::NT, d512::SMEM, stream>>>(
+      q, k, v, nsplit > 1 ? p.po : o, nsplit > 1 ? p.pm : m, nsplit > 1 ? p.pl : l, sq, sk,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  flash_merge_kernel<float><<<(unsigned)rows, d512::D / 4, 0, stream>>>(
-      po, pm, pl, o, m, l, (int)rows, nsplit);
-  return cudaGetLastError();
+  return launch_flash_merge<float>(p, nsplit, rows, o, m, l, stream);
 }
 
 // ----------------------------------------------------------- d = 40, bf16
@@ -1027,322 +976,6 @@ int launch_bf16(Kernel kernel, const bf16* q, const bf16* k, const bf16* v, bf16
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------- d = 512, bf16
-
-namespace d512bf {
-constexpr int D = 512;
-constexpr int BQ = 64, BK = 64;       // query rows per block, keys per tile
-constexpr int NT = 256;               // eight warps
-constexpr int WARPS = NT / 32;
-constexpr int SWR = 2;                // S: warps along rows (x WARPS / SWR along keys)
-constexpr int SMT = BQ / SWR / 16;    // S: m-tiles of 16 rows per warp
-constexpr int SNT = BK / (WARPS / SWR) / 8;  // S: n-tiles of 8 keys per warp
-constexpr int ONT = D / WARPS / 8;    // O: n-tiles of 8 columns per warp
-constexpr int OMT = BQ / 16;          // O: m-tiles (every row)
-constexpr int DC = 64;                // dims per K chunk: four k16 steps
-constexpr int VR = 16;                // keys per V chunk: one k16 step
-constexpr int NKC = D / DC, NVC = BK / VR, CHUNKS = NKC + NVC;
-constexpr int STAGES = 3;
-constexpr int LDQ = D + 8;            // rows of an odd number of 16-byte chunks
-constexpr int LDK = DC + 8;
-constexpr int LDV = D + 8;
-constexpr int LDP = BK + 8;           // P, bf16
-constexpr int LDS = BK + 4;           // scores, f32
-constexpr int SLOT = BK * LDK > VR * LDV ? BK * LDK : VR * LDV;
-constexpr size_t SMEM = sizeof(bf16) * (BQ * LDQ + STAGES * SLOT + BQ * LDP) +
-                        sizeof(float) * (BQ * LDS + 3 * BQ);
-static_assert(SMEM <= 232448, "bf16 d = 512 tile exceeds shared memory");
-static_assert(SMT == 2 && SNT == 2 && ONT % 2 == 0 && NT % BQ == 0, "warp layout");
-
-// Columns [0, W) of rows [row0, row0 + ROWS) of a row-major bf16 matrix
-// with row stride SLD into shared memory with row stride LD, in 16-byte
-// chunks; rows at or past rows_total are zero-filled.
-template <int W, int SLD, int LD, int ROWS>
-__device__ __forceinline__ void land(bf16* dst, const bf16* __restrict__ src, int row0,
-                                     int rows_total) {
-  constexpr int C = W / 8;
-#pragma unroll 1
-  for (int i = threadIdx.x; i < ROWS * C; i += NT) {
-    const int r = i / C, c = i % C * 8;
-    const bool ok = row0 + r < rows_total;
-    cp_async16(reinterpret_cast<float*>(dst + r * LD + c),
-               reinterpret_cast<const float*>(ok ? src + (size_t)(row0 + r) * SLD + c : src),
-               ok ? 16 : 0);
-  }
-}
-
-// Chunk c of this block's key range into a ring slot, as flash_d512_kernel
-// streams them: a K chunk of keys [key0, key0 + BK) x dims [part * DC, +
-// DC), or a V chunk of keys key0 + (part - NKC) * VR + [0, VR) x all D
-// dims.
-__device__ __forceinline__ void load_chunk(bf16* slot, const bf16* kb, const bf16* vb,
-                                           int c, int kbeg, int kend) {
-  const int part = c % CHUNKS;
-  const int key0 = kbeg + (c / CHUNKS) * BK;
-  if (part < NKC)
-    land<DC, D, LDK, BK>(slot, kb + part * DC, key0, kend);
-  else
-    land<D, D, LDV, VR>(slot, vb, key0 + (part - NKC) * VR, kend);
-}
-}  // namespace d512bf
-
-// flash_d512_kernel's design on bf16 operands (K1 in the bf16 VAE encode,
-// (1, 1, 4096, 512)): one bf16 tensor-core product a term with f32
-// accumulation (attn_bf16.cuh), read by ldmatrix. The 64-row Q tile stays
-// in shared memory (65 KB); K chunks of 64 keys x 64 dims and V chunks of
-// 16 keys x 512 dims pass through a ring of three slots filled by cp.async
-// two chunks ahead. Eight warps: for S each owns 32 rows x 16 keys, for O
-// all 64 rows x 64 of the 512 columns. After a tile's last K chunk the
-// scaled scores go to shared memory in f32, one online-softmax step per row
-// (four threads a row) takes the max and the sum of the unrounded p =
-// exp(s - m) and writes p rounded to bf16 (as the JAX library rounds
-// p.astype(v.dtype) before P V), which the warps read as A fragments. Each
-// chunk's product is summed in its own accumulator and added in f32. Bound:
-// 4*S^2*d flops per head at 989 TFLOP/s, 0.035 ms at (1, 1, 4096, 512).
-// grid (query tiles, bh, key splits), 256 threads; with one split, o is the
-// bf16 output and m_out / l_out the optional residuals; with several, the
-// split writes its slice of the f32 partials (part_o, m_out, l_out: the
-// unnormalized output, the row max and the row sum), which
-// flash_merge_kernel<bf16> combines.
-__global__ void __launch_bounds__(d512bf::NT, 1)
-flash_d512_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       float* __restrict__ part_o, float* __restrict__ m_out,
-                       float* __restrict__ l_out, int sq, int sk, float scale) {
-  using namespace d512bf;
-  extern __shared__ __align__(16) unsigned char smem_512[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_512);
-  bf16* ring = Qs + BQ * LDQ;
-  bf16* Ps = ring + STAGES * SLOT;
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * LDP);
-  float* m_s = Ss + BQ * LDS;
-  float* l_s = m_s + BQ;
-  float* c_s = l_s + BQ;
-
-  const int bh = blockIdx.y, nsplit = gridDim.z, split = blockIdx.z;
-  const bf16* qb = q + (size_t)bh * sq * D;
-  const bf16* kb = k + (size_t)bh * sk * D;
-  const bf16* vb = v + (size_t)bh * sk * D;
-  const int q0 = blockIdx.x * BQ;
-  const int ktiles = (sk + BK - 1) / BK;
-  const int kbeg = (split * ktiles / nsplit) * BK;
-  const int kend = min(((split + 1) * ktiles / nsplit) * BK, sk);
-  const int nchunks = (kend - kbeg + BK - 1) / BK * CHUNKS;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row in matrix, matrix
-
-  // Q joins the first chunk's copy group.
-  land<D, D, LDQ, BQ>(Qs, qb, q0, sq);
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) {
-    if (c < nchunks) load_chunk(ring + c * SLOT, kb, vb, c, kbeg, kend);
-    cp_async_commit();
-  }
-  for (int r = threadIdx.x; r < BQ; r += NT) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-
-  // S: warp owns rows sr0 + [0, 16 SMT) and keys sc0 + [0, 8 SNT).
-  const int sr0 = warp / (WARPS / SWR) * SMT * 16;
-  const int sc0 = warp % (WARPS / SWR) * SNT * 8;
-  float sacc[SMT][SNT][4];
-  // O: warp owns all BQ rows and columns oc0 + [0, 8 ONT).
-  const int oc0 = warp * ONT * 8;
-  float oacc[OMT][ONT][4];
-#pragma unroll
-  for (int i = 0; i < SMT; ++i)
-#pragma unroll
-    for (int j = 0; j < SNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[i][j][e] = 0.f;
-#pragma unroll
-  for (int i = 0; i < OMT; ++i)
-#pragma unroll
-    for (int j = 0; j < ONT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[i][j][e] = 0.f;
-
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // chunk c is in; slot (c - 1) % STAGES is free
-    if (c + STAGES - 1 < nchunks)
-      load_chunk(ring + ((c + STAGES - 1) % STAGES) * SLOT, kb, vb, c + STAGES - 1,
-                 kbeg, kend);
-    cp_async_commit();
-    const bf16* slot = ring + (c % STAGES) * SLOT;
-    const int part = c % CHUNKS;
-    if (part < NKC) {
-      // The chunk's product in its own accumulator, added to sacc in f32.
-      float tacc[SMT][SNT][4];
-#pragma unroll
-      for (int i = 0; i < SMT; ++i)
-#pragma unroll
-        for (int j = 0; j < SNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) tacc[i][j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DC / 16; ++ks) {
-        uint32_t a[SMT][4], b[4];  // b: (keys lo, d lo), (lo, hi), (keys hi, lo), (hi, hi)
-#pragma unroll
-        for (int i = 0; i < SMT; ++i)
-          ldsm_x4(a[i], Qs + (sr0 + i * 16 + lr + 8 * (lm & 1)) * LDQ + part * DC +
-                            ks * 16 + 8 * (lm >> 1));
-        ldsm_x4(b, slot + (sc0 + 8 * (lm >> 1) + lr) * LDK + ks * 16 + 8 * (lm & 1));
-#pragma unroll
-        for (int i = 0; i < SMT; ++i) {
-          mma_bf16_k16(tacc[i][0], a[i], b);
-          mma_bf16_k16(tacc[i][1], a[i], b + 2);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < SMT; ++i)
-#pragma unroll
-        for (int j = 0; j < SNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sacc[i][j][e] += tacc[i][j][e];
-      if (part == NKC - 1) {
-        // Scaled scores to shared memory (keys past kend at -inf), then one
-        // online-softmax step per row, NT / BQ threads a row.
-        const int key0 = kbeg + (c / CHUNKS) * BK;
-#pragma unroll
-        for (int i = 0; i < SMT; ++i)
-#pragma unroll
-          for (int j = 0; j < SNT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = sr0 + i * 16 + g + (e >> 1) * 8;
-              const int col = sc0 + j * 8 + 2 * t + (e & 1);
-              Ss[r * LDS + col] = key0 + col < kend ? sacc[i][j][e] * scale : -INFINITY;
-              sacc[i][j][e] = 0.f;
-            }
-        __syncthreads();
-        constexpr int TPR = NT / BQ;  // threads per row
-        const int r = threadIdx.x / TPR, sub = threadIdx.x % TPR;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = sub; j < BK; j += TPR) mx = fmaxf(mx, Ss[r * LDS + j]);
-        mx = row_max<TPR>(mx);
-        const float m_old = m_s[r];
-        const float m_new = fmaxf(m_old, mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = sub; j < BK; j += TPR) {
-          const float p = expf(Ss[r * LDS + j] - m_new);
-          Ps[r * LDP + j] = __float2bfloat16_rn(p);
-          sum += p;
-        }
-        sum = row_sum<TPR>(sum);
-        __syncwarp();
-        if (sub == 0) {
-          const float cr = expf(m_old - m_new);
-          m_s[r] = m_new;
-          l_s[r] = l_s[r] * cr + sum;
-          c_s[r] = cr;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < OMT; ++i) {
-          const float c0 = c_s[i * 16 + g], c1 = c_s[i * 16 + g + 8];
-#pragma unroll
-          for (int j = 0; j < ONT; ++j) {
-            oacc[i][j][0] *= c0;
-            oacc[i][j][1] *= c0;
-            oacc[i][j][2] *= c1;
-            oacc[i][j][3] *= c1;
-          }
-        }
-      }
-    } else {
-      // O += P[:, keys of this chunk] V_chunk: one k16 step of 16 keys.
-      const int kc = (part - NKC) * VR;
-      uint32_t a[OMT][4];
-#pragma unroll
-      for (int i = 0; i < OMT; ++i)
-        ldsm_x4(a[i], Ps + (i * 16 + lr + 8 * (lm & 1)) * LDP + kc + 8 * (lm >> 1));
-      const bf16* Vr = slot + (8 * (lm & 1) + lr) * LDV + oc0;
-#pragma unroll
-      for (int j = 0; j < ONT; j += 2) {
-        uint32_t b[4];  // (keys lo, cols 8j), (hi, 8j), (lo, 8j + 8), (hi, 8j + 8)
-        ldsm_x4_t(b, Vr + 8 * (j + (lm >> 1)));
-        float tile[OMT][2][4];
-#pragma unroll
-        for (int i = 0; i < OMT; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) tile[i][h][e] = 0.f;
-#pragma unroll
-        for (int i = 0; i < OMT; ++i) {
-          mma_bf16_k16(tile[i][0], a[i], b);
-          mma_bf16_k16(tile[i][1], a[i], b + 2);
-        }
-#pragma unroll
-        for (int i = 0; i < OMT; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) oacc[i][j + h][e] += tile[i][h][e];
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  const bool merged = nsplit > 1;
-  const size_t rows0 = ((size_t)split * gridDim.y + bh) * sq;
-#pragma unroll
-  for (int i = 0; i < OMT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = i * 16 + g + h * 8;
-      if (q0 + r >= sq) continue;
-      const size_t off = (rows0 + q0 + r) * D + oc0 + 2 * t;
-      if (merged) {
-#pragma unroll
-        for (int j = 0; j < ONT; ++j)
-          *reinterpret_cast<float2*>(part_o + off + j * 8) =
-              make_float2(oacc[i][j][2 * h], oacc[i][j][2 * h + 1]);
-      } else {
-        const float inv = 1.f / l_s[r];
-#pragma unroll
-        for (int j = 0; j < ONT; ++j)
-          *reinterpret_cast<uint32_t*>(o + off + j * 8) =
-              pack_bf16(oacc[i][j][2 * h] * inv, oacc[i][j][2 * h + 1] * inv);
-      }
-    }
-  if (m_out != nullptr) {
-    for (int i = threadIdx.x; i < BQ && q0 + i < sq; i += NT) {
-      m_out[rows0 + q0 + i] = m_s[i];
-      l_out[rows0 + q0 + i] = l_s[i];
-    }
-  }
-}
-
-int launch_d512_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* m,
-                     float* l, float* part, int nsplit, int bh, int sq, int sk,
-                     float scale, cudaStream_t stream) {
-  const int ktiles = (sk + d512bf::BK - 1) / d512bf::BK;
-  if (nsplit < 1 || nsplit > ktiles || (nsplit > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_d512_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)d512bf::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sq + d512bf::BQ - 1) / d512bf::BQ, bh, nsplit);
-  const size_t rows = (size_t)bh * sq;
-  float* pm = nsplit > 1 ? part + nsplit * rows * d512bf::D : m;
-  float* pl = nsplit > 1 ? pm + nsplit * rows : l;
-  flash_d512_bf16_kernel<<<grid, d512bf::NT, d512bf::SMEM, stream>>>(
-      q, k, v, o, part, pm, pl, sq, sk, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  flash_merge_kernel<bf16><<<(unsigned)rows, d512::D / 4, 0, stream>>>(
-      part, pm, pl, o, m, l, (int)rows, nsplit);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q: (bh, sq, d), k and v: (bh, sk, d), o: (bh, sq, d), all contiguous f32.
@@ -1372,30 +1005,21 @@ extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v
   }
 }
 
-// The bf16 kernels: q, k, v and o contiguous bf16 with the shapes above, d =
-// 40 or 512 (d = 64: p2p_flash_attn_fwd_bf16_sm90, flash_fwd_sm90.cu); m and
-// l as above (f32), both null or both non-null; nsplit and part as above (f32
-// partials), nsplit 1 unless d = 512. Returns a cudaError_t (0 on success).
+// The bf16 kernel at d = 40: q, k, v and o contiguous bf16 with the shapes
+// above; m and l as above (f32), both null or both non-null; nsplit 1 and
+// part null. d = 64 and 512 run on wgmma and TMA behind
+// p2p_flash_attn_fwd_bf16_sm90 (flash_fwd_sm90.cu), which has this
+// signature; here they are refused. Returns a cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                        void* o, float* m, float* l, float* part,
                                        int nsplit, int bh, int sq, int sk, int d,
                                        float scale, void* stream) {
-  if ((m == nullptr) != (l == nullptr)) return cudaErrorInvalidValue;
-  const bf16* qh = static_cast<const bf16*>(q);
-  const bf16* kh = static_cast<const bf16*>(k);
-  const bf16* vh = static_cast<const bf16*>(v);
-  bf16* oh = static_cast<bf16*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 512)
-    return launch_d512_bf16(qh, kh, vh, oh, m, l, part, nsplit, bh, sq, sk, scale, s);
-  if (nsplit != 1) return cudaErrorInvalidValue;
-  switch (d) {
-    case 40:
-      return launch_bf16<d40bf::T>(flash_d40_bf16_kernel, qh, kh, vh, oh, m, l, bh, sq,
-                                   sk, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if ((m == nullptr) != (l == nullptr) || nsplit != 1 || part != nullptr || d != 40)
+    return cudaErrorInvalidValue;
+  return launch_bf16<d40bf::T>(flash_d40_bf16_kernel, static_cast<const bf16*>(q),
+                               static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                               static_cast<bf16*>(o), m, l, bh, sq, sk, scale,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of the d = 40 kernel resident on one SM (its occupancy), and its

@@ -1,5 +1,5 @@
 // Hopper's own instructions, shared by the kernels written on them
-// (flash_fwd_sm90.cu: K1/K3 in bf16 at d = 64; flash_bwd_sm90.cu: K4's two
+// (flash_fwd_sm90.cu: K1/K3 in bf16 at d = 64 and 512; flash_bwd_sm90.cu: K4's two
 // passes in bf16 at d = 40 and 64; flash_bwd_tf32_sm90.cu: K4's two passes
 // in f32 at d = 64): mbarriers, TMA loads of bf16 rows into 64-wide boxes
 // and of f32 rows into 32-wide ones through 3-D tensor maps with the
@@ -91,8 +91,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 // unused (a k16 step lies inside one swizzle row; 1 by convention), and a
 // k16 step adds 32 bytes (2 units). MN-major (a tile as stored, [k][n], as B
 // with N = 64 = one swizzle row): the stride offset steps 8 rows of k; the
-// leading one, which would step 64 columns, is unused at N = 64 and is given
-// the same 1024 bytes; a k16 step adds 16 rows (2048 bytes, 128 units).
+// leading one steps 64 columns (one swizzle row of B to the next: unused at
+// N = 64, where it is given the same 1024 bytes; the box bytes apart at
+// N = 256); a k16 step adds 16 rows (2048 bytes, 128 units) of a box.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo16) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo16 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -150,6 +151,51 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "}\n"
       : P2P_F8(d, 0), P2P_F8(d, 8), P2P_F8(d, 16), P2P_F8(d, 24), P2P_F8(d, 32), P2P_F8(d, 40), P2P_F8(d, 48), P2P_F8(d, 56)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = [d +] A (64 x 16) B (16 x 64), A and B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : P2P_F8(d, 0), P2P_F8(d, 8), P2P_F8(d, 16), P2P_F8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 256, f32) += A (64 x 16) B (16 x 256), A K-major and B MN-major
+// (as stored, [k][n]) in shared memory: B's 256 columns are four 64-column
+// swizzle rows apart by the descriptor's leading byte offset.
+__device__ __forceinline__ void wgmma_ss_n256_tb(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : P2P_F8(d, 0), P2P_F8(d, 8), P2P_F8(d, 16), P2P_F8(d, 24), P2P_F8(d, 32), P2P_F8(d, 40), P2P_F8(d, 48), P2P_F8(d, 56),
+        P2P_F8(d, 64), P2P_F8(d, 72), P2P_F8(d, 80), P2P_F8(d, 88), P2P_F8(d, 96), P2P_F8(d, 104), P2P_F8(d, 112), P2P_F8(d, 120)
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64), B
@@ -311,13 +357,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous (bh, rows, d) bf16 tensor, d = 40 or 64: dims
-// (d, rows, bh), box (64, box_rows, 1), 128-byte swizzle (a box row of 64
-// bf16 is one swizzle row). Out-of-bounds elements read as zeros: rows past
-// `rows`, and at d = 40 the box's columns 40..63, so a 40-wide row lands as
-// a 64-wide one with zeros after it (its 80-byte stride is a multiple of 16,
-// as TMA requires; the zeros count toward the box's bytes). A box never
-// reads the next head's rows.
+// The map of a contiguous (bh, rows, d) bf16 tensor, d = 40, 64 or 512:
+// dims (d, rows, bh), box (64, box_rows, 1), 128-byte swizzle (a box row of
+// 64 bf16 is one swizzle row). Out-of-bounds elements read as zeros: rows
+// past `rows`, and at d = 40 the box's columns 40..63, so a 40-wide row
+// lands as a 64-wide one with zeros after it (its 80-byte stride is a
+// multiple of 16, as TMA requires; the zeros count toward the box's bytes).
+// At d = 512 a row lands as eight boxes, loaded by tma_load_col at columns
+// 0, 64, .... A box never reads the next head's rows.
 inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int rows,
                         int bh, int box_rows) {
   constexpr int BOX_COLS = 64;

@@ -1,7 +1,7 @@
 """The bf16 kernels' arithmetic in plain PyTorch, for the CPU tests.
 
 K1 at d = 40 and K2 also run on bf16 operands (``csrc/attn_bf16.cuh``),
-and K1 at d = 64 on Hopper's ``wgmma`` (``csrc/flash_fwd_sm90.cu``): one
+and K1 at d = 64 and 512 on Hopper's ``wgmma`` (``csrc/flash_fwd_sm90.cu``): one
 bf16 tensor-core product a term with f32 accumulation. A product of two
 bf16 values is exact in f32, so the scores
 are the exact products summed in f32; what sets these kernels apart from
@@ -34,9 +34,9 @@ import torch
 
 def k1_step(d: int) -> int:
     """Keys a step of the bf16 K1/K3 kernel at head dim ``d``: 128 for
-    ``flash_d64_sm90_kernel`` (d = 64), 64 for ``flash_d40_bf16_kernel`` and
-    ``flash_d512_bf16_kernel``."""
-    return 128 if d == 64 else 64
+    ``flash_d64_sm90_kernel`` (d = 64) and ``flash_d512_sm90_kernel`` (d =
+    512), 64 for ``flash_d40_bf16_kernel``."""
+    return 128 if d in (64, 512) else 64
 
 
 def k2_step(d: int) -> int:
@@ -64,7 +64,7 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     m2 = torch.full(q.shape[:-1], -math.inf, dtype=f32, device=q.device)
     l = torch.zeros(q.shape[:-1], dtype=f32, device=q.device)
     o = torch.zeros(q.shape, dtype=f32, device=q.device)
-    fused = q.shape[-1] == 64   # flash_d64_sm90_kernel: s·scale2 − m2 in one FMA
+    fused = q.shape[-1] in (64, 512)   # the sm90 kernels: s·scale2 − m2 in one FMA
     for k0 in range(0, k.shape[-2], step):
         kt, vt = k[..., k0:k0 + step, :].float(), v[..., k0:k0 + step, :].float()
         s = q.float() @ kt.transpose(-1, -2)

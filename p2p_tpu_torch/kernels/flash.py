@@ -13,29 +13,32 @@ launch the CUDA kernels of ``csrc/flash_attn.cu``: non-causal, unmasked
 SD-2.1 U-Net) and 512, the kernels run on the tensor cores in 3xTF32 (f32
 accuracy; :mod:`.tf32` emulates them, :func:`.tf32.flash_d40` the d = 40
 and d = 64 kernels step by step); d = 80 and 160, which no path runs, use
-an f32 kernel on the CUDA cores. At d = 512 the kernel may split the keys
-among several blocks (:func:`key_splits`); a second kernel merges the
-partial outputs in a fixed order (:func:`merge_partials` is its plain
-version). Main-path shapes: K1
-at the U-Net's 64²-pixel self sites, q/k/v ``(4, 8, 4096, 40)``, and the
-VAE's mid attention ``(2, 1, 4096, 512)`` (no split) and ``(1, 1, 4096,
-512)`` (two splits, in the inversion's encode and decode); K3 at ``(1, 8,
-4096, 40)`` in the null-text inversion's gradient steps. SD-2.1 runs K1
-at ``(4, 5, 9216, 64)`` and ``(4, 10, 2304, 64)`` (768-v) or ``(4, 5, 4096,
-64)`` (512-base), and its VAE at ``(2, 1, 9216, 512)``.
+an f32 kernel on the CUDA cores. A d = 512 kernel fills an SM with one block
+of 64 query rows, so it may split the keys among several blocks
+(:func:`key_splits`: when the query tiles leave SMs idle, too few for one
+round or a short last round); a second kernel (``csrc/flash_merge.cuh``)
+merges the partial outputs in a fixed order (:func:`merge_partials` is its
+plain version). Main-path shapes: K1 at the U-Net's 64²-pixel self sites,
+q/k/v ``(4, 8, 4096, 40)``, and the VAE's mid attention ``(2, 1, 4096,
+512)`` (no split) and ``(1, 1, 4096, 512)`` (two splits, in the
+inversion's encode and decode); K3 at ``(1, 8, 4096, 40)`` in the
+null-text inversion's gradient steps. SD-2.1 runs K1 at ``(4, 5, 9216,
+64)`` and ``(4, 10, 2304, 64)`` (768-v) or ``(4, 5, 4096, 64)`` (512-base),
+and its VAE at ``(2, 1, 9216, 512)`` and, in the inversion, ``(1, 1, 9216,
+512)``, whose 288 and 144 blocks leave a short last round on 132 SMs.
 
 K1 and K3 also take bf16 q, k and v: at d = 40 (the U-Net's 64²-pixel
 self sites of a bf16 edit, and of a bf16 inversion's forwards and
-gradients) ``flash_d40_bf16_kernel``, at d = 512 (the bf16 VAE encode of a
-bf16 inversion, (1, 1, 4096, 512)) ``flash_d512_bf16_kernel`` with the same
-key split and merge as in f32, both ``mma.sync``; at d = 64 (SD-2.1's self
-sites) ``flash_d64_sm90_kernel`` (``csrc/flash_fwd_sm90.cu``, its own
-library), on Hopper's ``wgmma`` and TMA, 128 keys a tile. Each is one bf16
-tensor-core pass a product with f32 accumulation, the unnormalized P of a
-key tile rounded to bf16 before P·V as the JAX library kernel rounds it
-(``p.astype(v.dtype)``; :func:`.bf16.k1_step` gives the tile), the output
-rounded to bf16 once, ``m`` and ``l`` f32 (``l`` the sum of the unrounded
-P).
+gradients) ``flash_d40_bf16_kernel`` (``mma.sync``); at d = 64 (SD-2.1's
+self sites) ``flash_d64_sm90_kernel`` and at d = 512 (the bf16 VAE encode
+of a bf16 inversion, (1, 1, 4096, 512) and (1, 1, 9216, 512))
+``flash_d512_sm90_kernel``, both in ``csrc/flash_fwd_sm90.cu`` (their own
+library) on Hopper's ``wgmma`` and TMA, 128 keys a tile, the d = 512 one
+with the key split and merge. Each is one bf16 tensor-core pass a product
+with f32 accumulation, the unnormalized P of a key tile rounded to bf16
+before P·V as the JAX library kernel rounds it (``p.astype(v.dtype)``;
+:func:`.bf16.k1_step` gives the tile), the output rounded to bf16 once,
+``m`` and ``l`` f32 (``l`` the sum of the unrounded P).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its launches by dtype
@@ -96,23 +99,53 @@ def flash_attention_residuals_plain(q: torch.Tensor, k: torch.Tensor,
             torch.cat(ms, dim=-1))
 
 
-#: Rows of a query tile and of a key tile of the d = 512 kernel.
+#: Rows of a query tile of either d = 512 kernel: one block an SM.
 D512_TILE = 64
+#: Keys a tile of the d = 512 kernel of each dtype: ``flash_d512_kernel``
+#: (f32, ``csrc/flash_attn.cu``) and ``flash_d512_sm90_kernel`` (bf16,
+#: ``csrc/flash_fwd_sm90.cu``).
+D512_KEY_TILE = {torch.float32: 64, torch.bfloat16: 128}
+#: The merge's cost in :func:`key_splits`, per dtype: the time one split of
+#: a round of blocks adds (its f32 partials, ``D512_TILE·(d + 2)`` values a
+#: block, written and read back: 10.4 µs at 3.35 TB/s for 132 blocks) over
+#: the time that kernel takes for one key tile (28 µs in f32, 5.0 µs in
+#: bf16, unsplit at (1, 1, 9216, 512) on an H100 80GB HBM3 at 700 W;
+#: PERF.md §6). With these the rule picks the fastest split of those timed
+#: there, or one within the run-to-run spread of it.
+D512_MERGE = {torch.float32: 0.37, torch.bfloat16: 2.0}
 #: Most key splits the d = 512 kernel is given.
 MAX_KEY_SPLITS = 16
 
 
-def key_splits(blocks: int, key_tiles: int, sms: int) -> int:
-    """Key splits for the d = 512 kernel, which fills an SM with one block.
-    None when ``blocks`` (query tiles × batch·heads) already cover every
-    SM; else the fewest that minimize the waves per unit of work,
-    ``⌈blocks·n / sms⌉ / n``, at most one split per key tile. At
-    (1, 1, 4096, 512) that is 2 (128 blocks; 4 splits, two waves of 256
-    blocks, measured 1.7 % slower on an H100)."""
-    if blocks >= sms:
-        return 1
+def key_splits(blocks: int, key_tiles: int, sms: int,
+               merge: float = D512_MERGE[torch.float32]) -> int:
+    """Key splits for a d = 512 kernel, which fills an SM with one block,
+    at most one split per key tile and ``MAX_KEY_SPLITS``. Fewer
+    ``blocks`` (query tiles × batch·heads) than SMs: the fewest that
+    minimize the rounds per unit of work, ``⌈blocks·n / sms⌉ / n`` (at (1,
+    1, 4096, 512) 2: 128 blocks; 4 splits, two rounds of 256 blocks, measured
+    1.7 % slower on an H100). Enough blocks for a round: the fewest that
+    minimize the rounds times the longest split's key tiles, ``⌈blocks·n /
+    sms⌉·⌈key_tiles / n⌉``, plus ``merge·n·blocks / sms`` for the partials
+    of more than one split (``merge``: :data:`D512_MERGE`), so that a
+    short last round is filled only where that pays."""
     hi = max(1, min(key_tiles, MAX_KEY_SPLITS))
-    return min(range(1, hi + 1), key=lambda n: (math.ceil(blocks * n / sms) / n, n))
+    if blocks < sms:
+        return min(range(1, hi + 1), key=lambda n: (math.ceil(blocks * n / sms) / n, n))
+
+    def cost(n):
+        rounds = math.ceil(blocks * n / sms) * math.ceil(key_tiles / n)
+        return rounds + (merge * n * blocks / sms if n > 1 else 0.0), n
+
+    return min(range(1, hi + 1), key=cost)
+
+
+def d512_splits(dtype: torch.dtype, bh: int, sq: int, sk: int, sms: int) -> int:
+    """The key splits of a d = 512 call in ``dtype`` over ``bh`` batch·heads
+    on a card of ``sms`` SMs (:func:`key_splits` with that dtype's kernel's
+    key tile and merge cost)."""
+    return key_splits(-(-sq // D512_TILE) * bh, -(-sk // D512_KEY_TILE[dtype]), sms,
+                      D512_MERGE[dtype])
 
 
 def merge_partials(outs, ls, ms):
@@ -132,8 +165,8 @@ def merge_partials(outs, ls, ms):
     return out / l[..., None], l, m
 
 
-#: The library of each forward entry: bf16 at d = 64 runs on Hopper's wgmma
-#: and TMA in a library of its own.
+#: The library of each forward entry: bf16 at d = 64 and 512 runs on
+#: Hopper's wgmma and TMA in a library of its own.
 ENTRIES = {"p2p_flash_attn_fwd": "flash_attn",
            "p2p_flash_attn_fwd_bf16": "flash_attn",
            "p2p_flash_attn_fwd_bf16_sm90": "flash_fwd_sm90"}
@@ -158,7 +191,7 @@ def entry_for(dtype: torch.dtype, d: int) -> str:
     """The forward C entry that runs ``dtype`` at head dim ``d``."""
     if dtype != torch.bfloat16:
         return "p2p_flash_attn_fwd"
-    return "p2p_flash_attn_fwd_bf16_sm90" if d == 64 else "p2p_flash_attn_fwd_bf16"
+    return "p2p_flash_attn_fwd_bf16_sm90" if d in (64, 512) else "p2p_flash_attn_fwd_bf16"
 
 
 def _lib() -> ctypes.CDLL:
@@ -226,7 +259,7 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nsplit, part = 1, None
     if d == 512:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        nsplit = key_splits(-(-sq // D512_TILE) * b * h, -(-sk // D512_TILE), sms)
+        nsplit = d512_splits(q.dtype, b * h, sq, sk, sms)
         if nsplit > 1:
             part = torch.empty(nsplit * b * h * sq * (d + 2), dtype=torch.float32,
                                device=q.device)

@@ -70,7 +70,7 @@ PROFILE_STEPS = 3    # traced steps
 CLASSES = (
     ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_d40_bf16_kernel", "flash_d64_kernel",
                           "flash_d64_sm90_kernel", "flash_fwd_kernel",
-                          "flash_d512_kernel", "flash_d512_bf16_kernel",
+                          "flash_d512_kernel", "flash_d512_sm90_kernel",
                           "flash_merge_kernel")),
     ("K4 flash_attn_bwd dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel",
                                "flash_bwd_dkv_tf32_sm90_kernel")),

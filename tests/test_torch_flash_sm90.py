@@ -90,7 +90,10 @@ def test_k1_k3_d64_bf16_emulation_ragged_matches_plain(sq, sk):
 @pytest.mark.parametrize("dtype,d,entry,library", [
     (TB, 64, "p2p_flash_attn_fwd_bf16_sm90", "flash_fwd_sm90"),
     (TB, 40, "p2p_flash_attn_fwd_bf16", "flash_attn"),
-    (TB, 512, "p2p_flash_attn_fwd_bf16", "flash_attn"),
+    # bf16 at d = 512 moved to wgmma and TMA; the case keeps the id it was
+    # first collected under.
+    pytest.param(TB, 512, "p2p_flash_attn_fwd_bf16_sm90", "flash_fwd_sm90",
+                 id="dtype2-512-p2p_flash_attn_fwd_bf16-flash_attn"),
     (torch.float32, 64, "p2p_flash_attn_fwd", "flash_attn"),
 ])
 def test_forward_entry_by_dtype_and_head_dim(dtype, d, entry, library):

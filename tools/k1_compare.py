@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K1 and K3 in bf16 at head dim 64 from another checkout against this
-checkout's ``p2p_flash_attn_fwd_bf16_sm90`` (``csrc/flash_fwd_sm90.cu``),
+"""K1 and K3 in bf16 at head dim 64 (and at d = 512, below) from another
+checkout against this checkout's ``p2p_flash_attn_fwd_bf16_sm90``
+(``csrc/flash_fwd_sm90.cu``),
 on the card, on the same inputs: the other checkout's
 ``p2p_flash_attn_fwd_bf16_sm90`` where it has that source (then held bit
 for bit), else its ``csrc/flash_attn.cu``'s ``p2p_flash_attn_fwd_bf16``.
@@ -24,6 +25,21 @@ whose device time is short, C entry against C entry, and wrapper against
 wrapper (each in a process of its own) when OTHER_CHECKOUT holds the whole
 package. Writes ``chiprun_out/k1_compare.json``. Exits 1 if an output is out
 of its bar. Needs one CUDA card.
+
+Also d = 512, the VAE's head: bf16 K1 at (1, 1, 4096, 512) and (1, 1,
+9216, 512) and K3 at (1, 1, 4100, 512) from this checkout's
+``flash_d512_sm90_kernel`` against the other checkout's bf16 d = 512
+kernel (its ``flash_d512_sm90_kernel`` where its ``flash_fwd_sm90.cu`` has
+one, then bit for bit, else its ``mma.sync`` kernel behind
+``p2p_flash_attn_fwd_bf16``, within ``BF16_TOL`` of the largest magnitude:
+the key tile moves where P rounds), and f32 K1 at (1, 1, 4096, 512), (1, 1,
+9216, 512) and (2, 1, 9216, 512) against the other's ``flash_d512_kernel``
+(within ``TC_TOL`` of each other and of the plain version; bit for bit
+where the two take the same key split); each side with its own tree's key
+split (the other's where its ``kernels/flash.py`` has ``d512_splits`` the
+same as this one's, else its rule of splitting only below one round of
+blocks), timed in turns (other, this, this, other), merge included, beside
+SDPA in the same dtype.
 """
 
 import ctypes
@@ -78,20 +94,129 @@ def wrapper_us(checkout: str) -> float:
     return float(out.stdout.split()[-1])
 
 
+_OTHER_LIBS: dict = {}
+
+
 def other_entry(checkout: str, name: str, entry: str):
-    """The other checkout's bf16 forward ``entry`` of ``csrc/<name>.cu``,
-    built here, typed."""
-    out = build.BUILD_DIR / f"lib{name}-other.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build._nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-o", str(out),
-                    os.path.join(checkout, f"p2p_tpu_torch/csrc/{name}.cu")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
+    """The other checkout's forward ``entry`` of ``csrc/<name>.cu``, built
+    here once a source, typed."""
+    lib = _OTHER_LIBS.get(name)
+    if lib is None:
+        out = build.BUILD_DIR / f"lib{name}-other.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build._nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-o", str(out),
+                        os.path.join(checkout, f"p2p_tpu_torch/csrc/{name}.cu")],
+                       check=True, capture_output=True)
+        lib = _OTHER_LIBS[name] = ctypes.CDLL(str(out))
     fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+D512_BF16 = (((1, 1, 4096, 512), False), ((1, 1, 9216, 512), False), ((1, 1, 4100, 512), True))
+D512_F32 = ((1, 1, 4096, 512), (1, 1, 9216, 512), (2, 1, 9216, 512))
+
+
+def parent_splits(blocks: int, key_tiles: int, sms: int) -> int:
+    """The key splits of a tree before ``d512_splits``: only below one round
+    of blocks, by the rule ``key_splits`` keeps there, in 64-key tiles."""
+    return 1 if blocks >= sms else flash.key_splits(blocks, key_tiles, sms)
+
+
+def d512_part(checkout: str, sms: int, gen, stream, bad: list) -> list:
+    """The d = 512 comparison against ``checkout`` (module docstring)."""
+    csrc = os.path.join(checkout, "p2p_tpu_torch/csrc")
+    other_sm90 = "flash_d512_sm90_kernel" in open(os.path.join(csrc, "flash_fwd_sm90.cu")).read() \
+        if os.path.exists(os.path.join(csrc, "flash_fwd_sm90.cu")) else False
+    flash_py = os.path.join(checkout, "p2p_tpu_torch/kernels/flash.py")
+    same_rule = os.path.exists(flash_py) and "def d512_splits" in open(flash_py).read()
+    entries = {
+        ("other", torch.bfloat16): (other_entry(checkout, "flash_fwd_sm90",
+                                                "p2p_flash_attn_fwd_bf16_sm90") if other_sm90
+                                    else other_entry(checkout, "flash_attn",
+                                                     "p2p_flash_attn_fwd_bf16")),
+        ("other", torch.float32): other_entry(checkout, "flash_attn", "p2p_flash_attn_fwd"),
+        ("this", torch.bfloat16): flash.forward_entry(flash.entry_for(torch.bfloat16, 512)),
+        ("this", torch.float32): flash.forward_entry(flash.entry_for(torch.float32, 512))}
+
+    def splits(side, dtype, b, s):
+        if side == "this" or same_rule:
+            return flash.d512_splits(dtype, b, s, s, sms)
+        other_tile = 128 if (dtype == torch.bfloat16 and other_sm90) else 64
+        return parent_splits(b * -(-s // flash.D512_TILE), -(-s // other_tile), sms)
+
+    rows = []
+    cases = [(shape, k3, torch.bfloat16) for shape, k3 in D512_BF16] + \
+            [(shape, False, torch.float32) for shape in D512_F32]
+    for shape, k3, dtype in cases:
+        b, h, s, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+        n = {side: splits(side, dtype, b, s) for side in ("other", "this")}
+        bufs = {}
+        for side in ("other", "this"):
+            o = torch.empty_like(q)
+            m, l = ([torch.empty((b, h, s), device="cuda") for _ in range(2)] if k3
+                    else (None, None))
+            part = (torch.empty(n[side] * b * h * s * (d + 2), device="cuda")
+                    if n[side] > 1 else None)
+            bufs[side] = (o, m, l, part)
+
+        def call(side):
+            lib, fn = entries[(side, dtype)]
+            o, m, l, part = bufs[side]
+            status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        None if m is None else m.data_ptr(),
+                        None if l is None else l.data_ptr(),
+                        None if part is None else part.data_ptr(), n[side], b * h, s, s, d,
+                        d ** -0.5, stream)
+            build.check(lib, status, f"{side} d = 512 forward")
+
+        for side in ("other", "this"):
+            call(side)
+        torch.cuda.synchronize()
+        again = bufs["this"][0].clone()
+        call("this")
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        tag = f"{'K3' if k3 else 'K1'} {'bf16' if bf16 else 'f32'} {shape}"
+        p_o, p_l, p_m = K.flash_attention_residuals_plain(q, k, v, d ** -0.5)
+        checks = [("out", 0, p_o, cs.BF16_TOL if bf16 else cs.TC_TOL)]
+        if k3:
+            checks += [("m", 1, p_m, cs.TC_TOL), ("l", 2, p_l, cs.TC_TOL)]
+        errs = {}
+        bitwise = (other_sm90 or not bf16) and n["other"] == n["this"]
+        for what, i, want, tol in checks:
+            this, other = bufs["this"][i], bufs["other"][i]
+            for key, a, ref in (("this_vs_other", this, other), ("this_vs_plain", this, want),
+                                ("other_vs_plain", other, want)):
+                e = cs.max_err(torch, a, ref)
+                if bf16 or what != "out":
+                    e /= ref.double().abs().max().item()
+                errs[f"{what} {key}"] = e
+                if e > tol:
+                    bad.append(f"{tag} {what} {key}: {e:.3g} > {tol}")
+            if bitwise and not torch.equal(this, other):
+                bad.append(f"{tag} {what}: not bit for bit the other tree's")
+        if not torch.equal(bufs["this"][0], again):
+            bad.append(f"{tag}: two launches differ")
+        times = {"other": [], "this": []}
+        iters = 5 if not bf16 else 10
+        for side in ("other", "this", "this", "other"):
+            times[side].append(cs.cuda_ms(torch, lambda: call(side), iters))
+        sdpa = cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=d ** -0.5), iters)
+        row = {"shape": list(shape), "dtype": "bf16" if bf16 else "f32", "k3": k3,
+               "key_splits": n, "bitwise_expected": bitwise, "errors": errs,
+               "other_ms": times["other"], "this_ms": times["this"], "sdpa_ms": sdpa,
+               **cs.bound(4.0 * b * h * s * s * d, 4 * q.element_size() * q.numel(), True,
+                          bf16=bf16)}
+        rows.append(row)
+        print(f"{tag}: splits other {n['other']} this {n['this']}; other {times['other']} ms, "
+              f"this {times['this']} ms, sdpa {sdpa:.4f} ms, bound {row['bound_ms']:.4f} ms; " +
+              ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items()))
+    return rows
 
 
 def main(argv) -> int:
@@ -200,6 +325,7 @@ def main(argv) -> int:
               f"other checkout's sm90 kernel: {same64}")
     if not same40:
         bad.append("d = 40: outputs differ from the other checkout's")
+    rows512 = d512_part(argv[1], sms, gen, stream, bad)
 
     # The host's time a call: C entry against C entry, then wrapper against
     # wrapper (each checkout's in a process of its own) where the other
@@ -232,7 +358,7 @@ def main(argv) -> int:
           ", ".join(f"{n} {us:.2f}" for n, us in host.items()))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "k1_compare.json"), "w") as f:
-        json.dump({"card": card, "rows": rows, "d40_bitwise": same40,
+        json.dump({"card": card, "rows": rows, "d512_rows": rows512, "d40_bitwise": same40,
                    "d64_bitwise": same64 if bitwise64 else None, "host_us": host,
                    "failures": bad}, f, indent=1)
     for line in bad:
