@@ -48,16 +48,19 @@ Phases, each of which raises on failure:
    ``kernels=KernelConfig()`` (exact K1/K2 counts), with ``kernels=None``
    (latents within 1e-2) and with the raw ``""`` uncond: the source row must
    end closer to the encoded image's latent with the optimized embeddings;
-6. bf16: K1 at d = 40 and K2 in bf16 against their bf16 plain versions
+6. bf16: K1 at d = 40 (``flash_fwd_sm90_kernel<40>``: wgmma and TMA, the
+   40-column rows landed in d = 64's swizzled layout; SASS and ptxas
+   checked as phase 8's) and K2 in bf16 against their bf16 plain versions
    (within 1e-2 of the plain output's largest magnitude, bitwise across
-   two launches; K1 at (4, 8, 4096, 40) and ragged, K2 at its 13
-   geometries), timed beside SDPA in bf16 and their bound at the bf16
-   tensor-core rate; then the Replace edit and the replay of the f32
-   artifact with ``dtype=torch.bfloat16``: exactly 5 bf16 K1 and 22 (5 in
-   the replay) bf16 K2, each with its bf16 fold, a step, and 1 f32 K1 for
-   the f32 VAE decode; the fused-vs-materialized bf16 drift (RMS) below
-   √2 times the bf16-vs-f32 distance (RMS) of the same seed, and the
-   null-text invariant;
+   two launches; K1 at (4, 8, 4096, 40), (1, 8, 4096, 40) and ragged, K2
+   at its 13 geometries), timed beside SDPA in bf16 and their bound at the
+   bf16 tensor-core rate (K1 also beside its exponentials' floor,
+   ``ex2_floor_ms``, printed only, as K3's is); then the Replace edit and
+   the replay of the f32 artifact with ``dtype=torch.bfloat16``: exactly 5
+   bf16 K1 and 22 (5 in the replay) bf16 K2, each with its bf16 fold, a
+   step, and 1 f32 K1 for the f32 VAE decode; the fused-vs-materialized
+   bf16 drift (RMS) below √2 times the bf16-vs-f32 distance (RMS) of the
+   same seed, and the null-text invariant;
 7. the bf16 inversion: the bf16 sums of the norms' backward
    (``window_sum_bf16_kernel``, XLA's windowed bf16 reduction) at the
    inversion's group- and layer-norm shapes, bitwise equal to their plain
@@ -85,7 +88,7 @@ Phases, each of which raises on failure:
    counts, the null-text invariant);
 8. SD-2.1 (``models/config.py:SD21`` and ``SD21_BASE``, head dim 64): K1
    at d = 64 in f32 (``flash_d64_kernel``, 3xTF32, within ``TC_TOL``) and
-   bf16 (``flash_d64_sm90_kernel``: wgmma and TMA, its SASS checked for
+   bf16 (``flash_fwd_sm90_kernel<64>``: wgmma and TMA, its SASS checked for
    HGMMA and UTMALDG and no HMMA; within ``BF16_TOL``) at the self sites
    of both configs, (4, 5, 9216, 64), (4, 10, 2304, 64) and (4, 5, 4096,
    64), and ragged; K3 (f32 ``m``, ``l`` within ``TC_TOL`` relative) and
@@ -171,6 +174,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# The exponentials' floor of a softmax on the card: 16 ex2 a clock an SM
+# (the MUFU) at the H100 SXM's 1.98 GHz boost clock.
+EX2_PER_CLOCK_SM = 16
+SM_CLOCK_HZ = 1.98e9
 
 
 def bound(flops: float, nbytes: float, tensor_cores: bool, bf16: bool = False) -> dict:
@@ -190,6 +197,16 @@ def bound(flops: float, nbytes: float, tensor_cores: bool, bf16: bool = False) -
                          if tensor_cores else "CUDA cores, f32"),
             "bound_f32_ms": max(t_f32, t_bytes) * 1e3,
             "bound_3xtf32_ms": max(t_tc, t_bytes) * 1e3}
+
+
+def ex2_floor_ms(torch, exps: float) -> float:
+    """The least ms the card's SMs take for ``exps`` exponentials (one
+    ``ex2`` a score in the flash kernels) at the boost clock: a floor beside
+    ``bound_ms`` that the tensor cores' does not cover. It assumes a clock
+    the card may not hold under load, so it is printed beside the times and
+    kept out of the ``kernels`` line."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (EX2_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
 
 
 def bound_text(r: dict) -> str:
@@ -544,12 +561,13 @@ def k2_phases(torch, K, F, dtype=None, cfgs=(None,)):
 
 
 def k1_bf16_phases(torch, K, F):
-    """K1 in bf16 at d = 40: the U-Net 64² self sites of the bf16 edit,
+    """K1 in bf16 at d = 40 (flash_fwd_sm90_kernel<40>): the U-Net 64² self
+    sites of the bf16 edit,
     (4, 8, 4096, 40), and of the bf16 inversion's forwards without
     gradient, (1, 8, 4096, 40), then the ragged lengths S = 4100 and Sq =
     300 with Sk = 70; each within ``BF16_TOL`` of the bf16 plain version's
     largest magnitude and bitwise-equal across two launches. SDPA in bf16
-    is the yardstick."""
+    is the yardstick; the exponentials' floor stands beside the bound."""
     gen = torch.Generator("cuda").manual_seed(4)
     rows = []
     for shape_q, sk in (((4, 8, 4096, 40), 4096), ((1, 2, 4100, 40), 4100),
@@ -576,7 +594,8 @@ def k1_bf16_phases(torch, K, F):
             **bound(4.0 * b * h * sq * sk * d, 2 * 4 * q.numel(), True, bf16=True)})
         r = rows[-1]
         print(f"{label}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"sdpa bf16 {r['library_ms']:.4f} ms  {bound_text(r)}")
+              f"sdpa bf16 {r['library_ms']:.4f} ms  {bound_text(r)}; ex2 floor "
+              f"{ex2_floor_ms(torch, b * h * sq * sk):.4f} ms")
     return rows
 
 
@@ -598,7 +617,8 @@ def sdpa_times(torch, F, q, k, v, do, scale: float, iters: int):
 
 #: The libraries written on Hopper's own instructions (wgmma, TMA), each
 #: with its kernels' instantiations: "name" or "name<head dim>".
-SM90_LIBRARIES = {"flash_fwd_sm90": ("flash_d64_sm90_kernel", "flash_d512_sm90_kernel"),
+SM90_LIBRARIES = {"flash_fwd_sm90": ("flash_fwd_sm90_kernel<40>", "flash_fwd_sm90_kernel<64>",
+                                     "flash_d512_sm90_kernel"),
                   "flash_bwd_sm90": tuple(f"flash_bwd_{p}_sm90_kernel<{d}>"
                                           for p in ("dkv", "dq") for d in (40, 64)),
                   "flash_bwd_tf32_sm90": ("flash_bwd_dkv_tf32_sm90_kernel",
@@ -725,7 +745,7 @@ def sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale: float, iters: int) -> float:
 
 def k1_d64_phases(torch, K, F, dtype):
     """K1 at d = 64, SD-2.1's head dim, in ``dtype`` (f32: flash_d64_kernel,
-    within ``TC_TOL``; bf16: flash_d64_sm90_kernel, within ``BF16_TOL`` of
+    within ``TC_TOL``; bf16: flash_fwd_sm90_kernel<64>, within ``BF16_TOL`` of
     the plain output's largest magnitude): the self sites of the 768-v
     edit, (4, 5, 9216, 64) and (4, 10, 2304, 64), and of the 512-base one,
     (4, 5, 4096, 64), then the ragged lengths S = 4100 and Sq = 300 with
@@ -778,7 +798,7 @@ def k34_d64_phases(torch, K, F, dtype):
     4100, Sq = 300 with Sk = 70 and Sq = 70 with Sk = 300. Outputs and
     gradients within ``TC_TOL`` (f32: flash_d64_kernel,
     flash_bwd_{dkv,dq}_tf32_sm90_kernel, all 3xTF32) or ``BF16_TOL`` (bf16:
-    flash_d64_sm90_kernel and flash_bwd_{dkv,dq}_sm90_kernel) of the plain
+    flash_fwd_sm90_kernel<64> and flash_bwd_{dkv,dq}_sm90_kernel) of the plain
     versions' largest magnitude, K3's f32 ``m`` and ``l`` within ``TC_TOL``
     relative, each bitwise across two launches; the K4 passes take the
     plain forward's residuals. The path shapes are timed beside the plain
@@ -1050,7 +1070,8 @@ def k34_bf16_phases(torch, K, F):
     bf16 inversion's gradient, (1, 8, 4096, 40), then at the ragged lengths
     S = 4100, Sq = 300 with Sk = 70 and Sq = 70 with Sk = 300: outputs and
     gradients within ``BF16_TOL`` of the bf16 plain versions' largest
-    magnitude (K4: flash_bwd_{dkv,dq}_sm90_kernel<40>), K3's f32 ``m`` and
+    magnitude (K3: flash_fwd_sm90_kernel<40>; K4:
+    flash_bwd_{dkv,dq}_sm90_kernel<40>), K3's f32 ``m`` and
     ``l`` within ``TC_TOL`` relative, each bitwise across two launches.
     The K4 passes take the plain forward's residuals. SDPA in bf16 is the
     yardstick: forward for K3, the backward alone for K4 (with
@@ -1112,6 +1133,7 @@ def k34_bf16_phases(torch, K, F):
                       "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                           q, k, v, scale=scale), 20),
                       **bound(2 * flops, 4 * n + 2 * stats, True, bf16=True)}
+        k3_ex2_ms = ex2_floor_ms(torch, b * h * sq * sk)
         rows["K4_dkv"] = {"shape": list(shape_q), "max_abs_err": err_dkv,
                           "ms": cuda_ms(torch, lambda: K.flash_attention_bwd_dkv(
                               q, k, v, do, l, m, di, scale), 20),
@@ -1136,7 +1158,7 @@ def k34_bf16_phases(torch, K, F):
         print(f"{name} bf16 {r['shape']}: max|Δ| {r['max_abs_err']:.3g}  kernel "
               f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa bf16 "
               f"{'bwd ' if name != 'K3' else ''}{r['library_ms']:.4f} ms{graphs}  "
-              f"{bound_text(r)}")
+              f"{bound_text(r)}" + (f"; ex2 floor {k3_ex2_ms:.4f} ms" if name == "K3" else ""))
     print("K3/K4 bf16: two launches give bitwise-equal outputs at every geometry")
     return rows
 
@@ -1751,16 +1773,20 @@ def main() -> int:
         kernel_entry("flash_attn_bwd_dkv", "p2p_tpu_torch/csrc/flash_attn_bwd.cu",
                      "p2p_tpu/models/nn.py:308", inv_counts["flash_attn_bwd_dkv"],
                      [k34["K4_dkv"]]),
-        kernel_entry("flash_attn_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_attn_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:330", counts16["flash_attn_bf16"], k1_bf16,
-                     units="tensor cores, bf16 (flash_d40_bf16_kernel; attn_bf16.cuh)",
+                     units="tensor cores, bf16: wgmma (m64n128k16 Q K^T in 3 k16 steps, "
+                           "m64n40k16 P V with P from registers) fed by TMA, Q in "
+                           "zero-filled 64-column boxes, K and V in 40-column ones "
+                           "(flash_fwd_sm90_kernel<40>)",
                      replay_launches=replay16_counts["flash_attn_bf16"],
                      inversion_bf16_launches=inv16_counts["flash_attn_bf16"],
                      replay_of_bf16_artifact_launches=replay16i_counts["flash_attn_bf16"],
                      note="K1 with bf16 q, k, v and output at d = 40 (launches from "
                           "the bf16 edit; inversion_bf16_launches counts every bf16 "
                           "K1, the d = 512 encode's among them); library_ms is SDPA "
-                          "in bf16"),
+                          "in bf16",
+                     sass=sass, ptxas=sm90_ptxas.get("flash_fwd_sm90_kernel<40>")),
         kernel_entry("flash_attn_d512_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:330",
                      inversion16["launches_by_head_dim"]["K1 bf16 d=512"], k1_d512_bf16,
@@ -1778,12 +1804,15 @@ def main() -> int:
                           "counts the inversion's merges of both dtypes (the f32 "
                           "decode's too); library_ms is SDPA in bf16",
                      sass=sass, ptxas=sm90_ptxas.get("flash_d512_sm90_kernel")),
-        kernel_entry("flash_attn_residuals_bf16", "p2p_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_attn_residuals_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:343", inv16_counts["flash_attn_residuals_bf16"],
                      [k34_bf16["K3"]],
-                     units="tensor cores, bf16 (flash_d40_bf16_kernel writing m and l)",
+                     units="tensor cores, bf16: wgmma fed by TMA, Q in zero-filled "
+                           "64-column boxes, K and V in 40-column ones "
+                           "(flash_fwd_sm90_kernel<40> writing m and l)",
                      note="launches from the bf16 inversion; library_ms is SDPA "
-                          "forward in bf16"),
+                          "forward in bf16",
+                     sass=sass, ptxas=sm90_ptxas.get("flash_fwd_sm90_kernel<40>")),
         *(kernel_entry(f"flash_attn_bwd_{p}_bf16", "p2p_tpu_torch/csrc/flash_bwd_sm90.cu",
                        "p2p_tpu/models/nn.py:308", inv16_counts[f"flash_attn_bwd_{p}_bf16"],
                        [k34_bf16[f"K4_{p}"]],
@@ -1823,9 +1852,9 @@ def main() -> int:
         kernel_entry("flash_attn_d64_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:330", dims21_16["K1 bf16 d=64"], k1_d64_bf16,
                      units="tensor cores, bf16: wgmma (m64n128k16 Q K^T, m64n64k16 P V "
-                           "with P from registers) fed by TMA (flash_d64_sm90_kernel)",
+                           "with P from registers) fed by TMA (flash_fwd_sm90_kernel<64>)",
                      note="launches from the sd21 bf16 edit; library_ms is SDPA in bf16",
-                     sass=sass),
+                     sass=sass, ptxas=sm90_ptxas.get("flash_fwd_sm90_kernel<64>")),
         kernel_entry("flash_attn_residuals_d64", "p2p_tpu_torch/csrc/flash_attn.cu",
                      "p2p_tpu/models/nn.py:343", dims_inv21["K3 f32 d=64"], k34_d64["K3"],
                      units="tensor cores, 3xTF32 (flash_d64_kernel writing m and l)",
@@ -1835,10 +1864,11 @@ def main() -> int:
         kernel_entry("flash_attn_residuals_d64_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:343", dims_inv21_16["K3 bf16 d=64"],
                      k34_d64_bf16["K3"],
-                     units="tensor cores, bf16: wgmma fed by TMA (flash_d64_sm90_kernel "
+                     units="tensor cores, bf16: wgmma fed by TMA (flash_fwd_sm90_kernel<64> "
                            "writing m and l)",
                      note="launches from the sd21 bf16 inversion; library_ms is SDPA "
-                          "forward in bf16"),
+                          "forward in bf16",
+                     sass=sass, ptxas=sm90_ptxas.get("flash_fwd_sm90_kernel<64>")),
         *(kernel_entry(f"flash_attn_bwd_{p}_d64{sfx}", f"p2p_tpu_torch/csrc/{source}.cu",
                        "p2p_tpu/models/nn.py:308", dims[f"K4 {p} {dt} d=64"],
                        rows[f"K4_{p}"],

@@ -1,13 +1,13 @@
-// Softmax attention in bf16 on the tensor cores, for the port's Hopper
-// kernels (flash_attn.cu: K1 at d = 40; fused_edit.cu: K2).
+// Softmax attention in bf16 on the tensor cores, for K2's bf16 kernel
+// (fused_edit.cu; K1 and K3 in bf16 run on wgmma in flash_fwd_sm90.cu).
 //
 // One bf16 product a term: mma.sync.aligned.m16n8k16 (and m16n8k8 for a
 // head dim's last 8 columns) with bf16 operands and an f32 accumulator. The
 // product of two bf16 values is exact in f32, so q k^T comes out as the JAX
 // package's bf16 dot with preferred_element_type=f32 computes it, up to the
-// order of the sum. P is rounded to bf16 (cvt.rn.bf16x2.f32, to nearest
-// even, as p.astype(v.dtype) rounds) before P V; the row max, the row sum
-// and the output stay f32 until the output is rounded to bf16 once.
+// order of the sum. The normalized P is rounded to bf16 (cvt.rn.bf16x2.f32,
+// to nearest even, as p.astype(v.dtype) rounds) before P V; the row max, the
+// row sum and the output stay f32 until the output is rounded to bf16 once.
 //
 // Fragments, with g = lane / 4 and t = lane % 4 (each register holds two
 // bf16, the lower column in the lower half):
@@ -132,27 +132,20 @@ __device__ __forceinline__ void land_rows_bf16(bf16* dst, const bf16* __restrict
 // again. qh (pixels, D), kh and vh (keys, D), oh (pixels, D), all bf16;
 // with LO, vlo null or the low parts of values carried as a bf16 pair,
 // v = vh + vlo, each taken in its own product with the same P;
-// scale2 = scale * log2(e). With m_out non-null, also each row's max
-// m = max_j s_j (natural units) into m_out and sum l = sum_j exp(s_j - m)
-// into l_out (f32, per query row). Every thread of the block calls it.
+// scale2 = scale * log2(e). Every thread of the block calls it.
 //
-// NORM chooses which P is rounded to bf16. Without it (K1, as the JAX
-// library's flash kernel rounds): each step's unnormalized p = 2^(s - m2)
-// against the running max, the output rescaled as the max moves and divided
-// by the row sum at the end. With it (K2, as the JAX edit kernel rounds its
-// whole probability rows): the normalized P = p / l, so the row's max and
-// sum are taken first, in the same step when the keys are one step (a
-// cross site) and by a pass of Q K^T over every step before the P V pass
-// otherwise.
-template <int D, int BS, int NW, bool NORM = false, bool LO = false>
+// The normalized P = p / l is rounded to bf16, as the JAX edit kernel
+// rounds its whole probability rows, so the row's max and sum are taken
+// first: in the same step when the keys are one step (a cross site) and by
+// a pass of Q K^T over every step before the P V pass otherwise.
+template <int D, int BS, int NW, bool LO = false>
 __device__ __forceinline__ void attend_bf16(const bf16* __restrict__ qh,
                                             const bf16* __restrict__ kh,
                                             const bf16* __restrict__ vh,
                                             const bf16* __restrict__ vlo,
                                             bf16* __restrict__ oh, int q0, int pixels,
                                             int keys, float scale2, bool accumulate,
-                                            bf16* smem, float* __restrict__ m_out,
-                                            float* __restrict__ l_out) {
+                                            bf16* smem) {
   using T = AttnBf16<D, BS, NW, LO>;
   constexpr int LD = T::LD;
   bf16* Qs = smem;
@@ -304,51 +297,34 @@ __device__ __forceinline__ void attend_bf16(const bf16* __restrict__ qh,
     }
   };
 
-  float inv[2] = {1.f, 1.f};  // what the output is divided by at the end
-  if constexpr (NORM) {
-    if (nsteps > 1) {  // the rows' max and sum over every step first
-      walk([&](const bf16* Kc, const bf16*, int key0) {
-        float s[T::NS][4], c[2];
-        scores(Kc, key0, s);
-        online(s, c);
-      });
-      quad_sum();
-    }
-    walk([&](const bf16* Kc, const bf16* Vc, int key0) {
-      float s[T::NS][4];
-      scores(Kc, key0, s);
-      if (nsteps == 1) {
-        float c[2];
-        online(s, c);
-        quad_sum();
-      } else {
-#pragma unroll
-        for (int n = 0; n < T::NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = exp2_ftz(s[n][e] - m2[e >> 1]);
-      }
-      const float r[2] = {1.f / lsum[0], 1.f / lsum[1]};
-#pragma unroll
-      for (int n = 0; n < T::NS; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] *= r[e >> 1];
-      pv(Vc, s);
-    });
-  } else {
-    walk([&](const bf16* Kc, const bf16* Vc, int key0) {
+  if (nsteps > 1) {  // the rows' max and sum over every step first
+    walk([&](const bf16* Kc, const bf16*, int key0) {
       float s[T::NS][4], c[2];
       scores(Kc, key0, s);
       online(s, c);
-#pragma unroll
-      for (int n = 0; n < T::NO; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= c[e >> 1];
-      pv(Vc, s);
     });
     quad_sum();
-    inv[0] = 1.f / lsum[0];
-    inv[1] = 1.f / lsum[1];
   }
+  walk([&](const bf16* Kc, const bf16* Vc, int key0) {
+    float s[T::NS][4];
+    scores(Kc, key0, s);
+    if (nsteps == 1) {
+      float c[2];
+      online(s, c);
+      quad_sum();
+    } else {
+#pragma unroll
+      for (int n = 0; n < T::NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = exp2_ftz(s[n][e] - m2[e >> 1]);
+    }
+    const float r[2] = {1.f / lsum[0], 1.f / lsum[1]};
+#pragma unroll
+    for (int n = 0; n < T::NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= r[e >> 1];
+    pv(Vc, s);
+  });
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -357,17 +333,13 @@ __device__ __forceinline__ void attend_bf16(const bf16* __restrict__ qh,
 #pragma unroll
     for (int n = 0; n < T::NO; ++n) {
       uint32_t* p = reinterpret_cast<uint32_t*>(oh + (size_t)r * D + n * 8 + 2 * t);
-      float x0 = acc[n][2 * h] * inv[h], x1 = acc[n][2 * h + 1] * inv[h];
+      float x0 = acc[n][2 * h], x1 = acc[n][2 * h + 1];
       if (accumulate) {
         const uint32_t old = *p;
         x0 += bf16_lo(old);
         x1 += bf16_hi(old);
       }
       *p = pack_bf16(x0, x1);
-    }
-    if (m_out != nullptr && t == 0) {
-      m_out[r] = m2[h] * 0.6931471805599453f;  // log2 units to natural
-      l_out[r] = lsum[h];
     }
   }
 }

@@ -71,27 +71,11 @@
 // order. The wrapper (p2p_tpu_torch/kernels/flash.py: key_splits) picks
 // the split and allocates the partials.
 //
-// flash_d40_bf16_kernel (d = 40, bf16 q/k/v/o: K1 at the U-Net's 64x64-pixel
-// self sites of a bf16 edit, (4, 8, 4096, 40)), one bf16 tensor-core pass a
-// product with f32 accumulation (attn_bf16.cuh), the JAX library kernel's
-// arithmetic in bf16: the scores exact products summed in f32, P rounded to
-// bf16 before P V, the max, the sum and the output in f32 until the output
-// is rounded once. Bound: 4*S^2*d flops per head at 989 TFLOP/s, 0.087 ms at
-// (4, 8, 4096, 40) (the bytes take 0.013 ms). Eight warps of 16 query rows
-// (128 rows a block); Q, K and V land by cp.async, 64 keys a step, the next
-// step while this one computes, and are read by ldmatrix; the head dim of 40
-// is two k16 steps and one k8 step of Q K^T and five n-tiles of P V. It keeps
-// K1's nullable m and l outputs: with them it is K3 in bf16, (1, 8, 4096,
-// 40) under the bf16 inversion's gradient (bound 0.022 ms), l the sum of the
-// unrounded p as the library sums it.
-//
-// K1 and K3 in bf16 at d = 64 (SD-2.1's self sites) and d = 512 (the bf16
-// VAE encode) are not here: they run on wgmma and TMA in flash_fwd_sm90.cu,
-// behind an entry of the same signature as p2p_flash_attn_fwd_bf16, which
-// refuses both.
+// K1 and K3 in bf16 are not here: they run on wgmma and TMA in
+// flash_fwd_sm90.cu, at d = 40 and 64 (flash_fwd_sm90_kernel<DH>) and at d =
+// 512 (flash_d512_sm90_kernel).
 //
 // No kernel here uses atomics: two launches give the same bits.
-#include "attn_bf16.cuh"
 #include "attn_tile.cuh"
 #include "flash_merge.cuh"  // flash_merge_kernel, MergeParts, launch_flash_merge
 #include "mma_tf32.cuh"
@@ -937,45 +921,6 @@ int launch_d512(const float* q, const float* k, const float* v, float* o,
   return launch_flash_merge<float>(p, nsplit, rows, o, m, l, stream);
 }
 
-// ----------------------------------------------------------- d = 40, bf16
-
-namespace d40bf {
-constexpr int D = 40, BS = 64, NW = 8;
-using T = AttnBf16<D, BS, NW>;
-constexpr float LOG2E = 1.4426950408889634f;
-}  // namespace d40bf
-
-// grid (query tiles of 128 rows, bh), 256 threads.
-__global__ void __launch_bounds__(d40bf::T::NT, 2)
-flash_d40_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ m_out, float* __restrict__ l_out, int sq,
-                      int sk, float scale2) {
-  using namespace d40bf;
-  extern __shared__ __align__(16) unsigned char smem_bf[];
-  const size_t bh = blockIdx.y;
-  attend_bf16<D, BS, NW>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D, nullptr,
-                         o + bh * sq * D, blockIdx.x * T::ROWS, sq, sk, scale2, false,
-                         reinterpret_cast<bf16*>(smem_bf),
-                         m_out ? m_out + bh * sq : nullptr,
-                         l_out ? l_out + bh * sq : nullptr);
-}
-
-// One launch of a bf16 attention kernel of geometry T (grid: query tiles of
-// T::ROWS rows x bh).
-template <class T, class Kernel>
-int launch_bf16(Kernel kernel, const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                float* m, float* l, int bh, int sq, int sk, float scale,
-                cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sq + T::ROWS - 1) / T::ROWS, bh);
-  kernel<<<grid, T::NT, T::SMEM, stream>>>(q, k, v, o, m, l, sq, sk,
-                                           scale * d40bf::LOG2E);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q: (bh, sq, d), k and v: (bh, sk, d), o: (bh, sq, d), all contiguous f32.
@@ -1003,23 +948,6 @@ extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// The bf16 kernel at d = 40: q, k, v and o contiguous bf16 with the shapes
-// above; m and l as above (f32), both null or both non-null; nsplit 1 and
-// part null. d = 64 and 512 run on wgmma and TMA behind
-// p2p_flash_attn_fwd_bf16_sm90 (flash_fwd_sm90.cu), which has this
-// signature; here they are refused. Returns a cudaError_t (0 on success).
-extern "C" int p2p_flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
-                                       void* o, float* m, float* l, float* part,
-                                       int nsplit, int bh, int sq, int sk, int d,
-                                       float scale, void* stream) {
-  if ((m == nullptr) != (l == nullptr) || nsplit != 1 || part != nullptr || d != 40)
-    return cudaErrorInvalidValue;
-  return launch_bf16<d40bf::T>(flash_d40_bf16_kernel, static_cast<const bf16*>(q),
-                               static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                               static_cast<bf16*>(o), m, l, bh, sq, sk, scale,
-                               static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of the d = 40 kernel resident on one SM (its occupancy), and its

@@ -1,20 +1,23 @@
-// K1 and K3 in bf16 at head dims 64 and 512, on Hopper's own instructions:
-// wgmma, TMA and mbarriers. flash_d64_sm90_kernel has a producer warpgroup
-// and two consumer warpgroups; flash_d512_sm90_kernel (below the d = 64
-// notes) has two warpgroups and splits its keys among blocks.
+// K1 and K3 in bf16 at head dims 40, 64 and 512, on Hopper's own
+// instructions: wgmma, TMA and mbarriers. flash_fwd_sm90_kernel<DH> (DH = 40
+// or 64) has a producer warpgroup and two consumer warpgroups;
+// flash_d512_sm90_kernel (below the notes of the other) has two warpgroups
+// and splits its keys among blocks.
 //
-// Replaces, at d = 64 and 512 in bf16, the JAX package's
-// `flash_attention_tpu` (p2p_tpu/models/nn.py:330, K1) and
-// `flash_attention_residuals` (p2p_tpu/models/nn.py:343, K3): the library
-// Pallas TPU flash kernel (`flash_attention.py:758`, its `pallas_call`),
-// with save_residuals for K3. On the paths at d = 64: K1 at SD-2.1's self
-// sites of a bf16 edit or replay, (4, 5, 9216, 64) and (4, 10, 2304, 64) at
-// 768-v, (4, 5, 4096, 64) at 512-base, and in the bf16 inversions' forwards
-// without gradient at batch 1; K3 (m and l non-null) at the bf16
-// inversions' gradient sites, (1, 5, 9216, 64), (1, 10, 2304, 64),
-// (1, 5, 4096, 64). At d = 512: K1 at the VAE's mid attention in a bf16
-// inversion's encode, (1, 1, 4096, 512) at SD-1.4 and (1, 1, 9216, 512) at
-// SD-2.1 768-v.
+// Replaces, in bf16, the JAX package's `flash_attention_tpu`
+// (p2p_tpu/models/nn.py:330, K1) and `flash_attention_residuals`
+// (p2p_tpu/models/nn.py:343, K3): the library Pallas TPU flash kernel
+// (`flash_attention.py:758`, its `pallas_call`), with save_residuals for K3.
+// On the paths at d = 40: K1 at SD-1.4's 64x64-pixel self sites of a bf16
+// edit or replay, (4, 8, 4096, 40), and of a bf16 inversion's forwards
+// without gradient, (1, 8, 4096, 40); K3 (m and l non-null) at the bf16
+// inversion's gradient sites, (1, 8, 4096, 40). At d = 64: K1 at SD-2.1's
+// self sites of a bf16 edit or replay, (4, 5, 9216, 64) and (4, 10, 2304,
+// 64) at 768-v, (4, 5, 4096, 64) at 512-base, and in the bf16 inversions'
+// forwards without gradient at batch 1; K3 at the bf16 inversions' gradient
+// sites, (1, 5, 9216, 64), (1, 10, 2304, 64), (1, 5, 4096, 64). At d = 512:
+// K1 at the VAE's mid attention in a bf16 inversion's encode, (1, 1, 4096,
+// 512) at SD-1.4 and (1, 1, 9216, 512) at SD-2.1 768-v.
 //
 // The function: o = softmax(q k^T scale) v, bf16 in and out, non-causal,
 // unmasked; with m and l, also each row's max m (natural units) and sum
@@ -27,30 +30,43 @@
 // is divided by l and rounded once.
 //
 // Bound on an H100 SXM: 4 S^2 d flops a head at 989 TFLOP/s, 0.4397 ms at
-// (4, 5, 9216, 64) (the bytes take 0.0225 ms). The exponentials are a second
-// floor: b h S^2 = 1.70e9 ex2 at 16 a clock an SM (the MUFU), 0.41 ms at a
-// 1.98 GHz clock. Run one after the other the two take about SDPA's time, so
-// the design overlaps them:
+// (4, 5, 9216, 64) (the bytes take 0.0225 ms) and 0.0869 ms at (4, 8, 4096,
+// 40). The exponentials are a second floor: b h S^2 ex2 at 16 a clock an SM
+// (the MUFU) on 132 SMs at 1.98 GHz, 0.41 ms at (4, 5, 9216, 64) and 0.128
+// ms at (4, 8, 4096, 40), where it lies above the tensor cores' floor. Run
+// one after the other the two take about SDPA's time, so the design
+// overlaps them:
 //
-// - Loads by TMA. One 3-D tensor map each for Q, K and V, (d = 64, S, B*H),
+// - Loads by TMA. One 3-D tensor map each for Q, K and V, (DH, S, B*H),
 //   box (64, rows, 1), 128-byte swizzle: a 64-wide bf16 row is 128 bytes, one
 //   swizzle row, so the tiles land in the layout wgmma reads with no padding;
 //   a tile never reads the next head's rows, and rows past S arrive
-//   zero-filled. The maps are encoded on the host each call
+//   zero-filled. At DH = 40 the tiles, swizzle and descriptors stay d = 64's:
+//   Q's 80-byte rows land in the 64-column box with columns 40..63
+//   zero-filled by TMA, and K's and V's in narrow boxes of their 40 columns
+//   at the start of each 128-byte swizzle row, TMA leaving the rest as it
+//   was (sm90.cuh:encode_rows); the zero-filled boxes took 1.2x as long for
+//   K and V, which stream, on an H100 80GB HBM3 at 700 W
+//   (tools/k1_d40_variants.py times the variants). The K ring starts
+//   zeroed, since Q K^T's last k16 step reads K's columns 40..47 against
+//   Q's zeros. The maps are encoded on the host each call
 //   (cuTensorMapEncodeTiled, fetched once from the driver through the
-//   runtime's entry-point query, so the library needs no -lcuda) and passed as
-//   __grid_constant__ parameters.
+//   runtime's entry-point query, so the library needs no -lcuda) and passed
+//   as __grid_constant__ parameters.
 // - Warp specialisation. Warpgroups 0 and 1 are consumers, each owning 64 of
 //   the block's 128 query rows; warpgroup 2 is the producer: it gives up
 //   registers (setmaxnreg 24, the consumers take 240) and one thread lands Q
-//   once and keeps a ring of two K and two V tiles of 128 keys in flight
-//   (expect-tx on each tile's full barrier; the consumers' warps release it on
-//   its empty barrier).
-// - S = Q K^T by wgmma m64n128k16, four k-steps, both operands in shared
-//   memory through descriptors (K-major, 128-byte swizzle).
-// - O += P V by wgmma m64n64k16: P is A from registers (the f32 accumulator
-//   layout of S is the A-register layout of the next product, two columns to
-//   a register), V is B from shared memory as stored, [key][d], the MN-major
+//   once and keeps a ring of two K and two V tiles of 128 keys in flight, of
+//   three each at d = 40 (expect-tx on each tile's full barrier; the
+//   consumers' warps release it on its empty barrier).
+// - S = Q K^T by wgmma m64n128k16, (DH + 15) / 16 k-steps (4 at d = 64; 3 at
+//   d = 40, the third reading columns 32..47, of which 40..47 are zeros),
+//   both operands in shared memory through descriptors (K-major, 128-byte
+//   swizzle).
+// - O += P V by wgmma m64nDHk16 (m64n64k16, or m64n40k16 over V's first 40
+//   columns): P is A from registers (the f32 accumulator layout of S is the
+//   A-register layout of the next product, two columns to a register), V is
+//   B from shared memory as stored, [key][64 columns], the MN-major
 //   ("transposed") operand.
 // - Overlap: each consumer issues tile j's Q K^T and then tile j-1's P V
 //   before it waits for the scores, so the exponentials of tile j run while
@@ -124,39 +140,64 @@ using namespace p2p;
 
 namespace {
 
-namespace d64 {
-constexpr int D = 64;                  // head dim: one 128-byte row
+namespace fwd {
+constexpr int BOX = 64;                // columns of a tile row: one 128-byte swizzle row
 constexpr int BM = 64;                 // query rows a consumer warpgroup
 constexpr int NC = 2;                  // consumer warpgroups
 constexpr int ROWS = BM * NC;          // query rows a block
 constexpr int BN = 128;                // keys a tile
 constexpr int SN = BN / 2;             // S accumulators a consumer thread
-constexpr int STAGES = 2;              // K and V tiles in flight
 constexpr int NT = 128 * (NC + 1);     // consumer warpgroups, then the producer's
-constexpr int ROW_BYTES = D * 2;
-constexpr int TILE_BYTES = BN * ROW_BYTES;
+constexpr int ROW_BYTES = BOX * 2;
+constexpr int TILE_BYTES = BN * ROW_BYTES;  // a K or V stage
 constexpr int Q_BYTES = ROWS * ROW_BYTES;
-constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * TILE_BYTES;  // + alignment slack
 // Registers a thread after setmaxnreg: the producer's go to the consumers.
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 static_assert((PRODUCER_REGS + NC * CONSUMER_REGS) * 128 <= 65536, "register file");
 constexpr float LOG2E = 1.4426950408889634f;
-}  // namespace d64
+
+// The k16 steps of Q K^T at head dim DH: rounded up, so that at d = 40 the
+// third step takes columns 32..39 (and the zeros after them).
+template <int DH>
+__host__ __device__ constexpr int qk_steps() {
+  static_assert(DH % 8 == 0 && DH <= BOX, "a head row fits one 64-column box");
+  return (DH + 15) / 16;
+}
+static_assert(qk_steps<40>() == 3 && qk_steps<64>() == 4, "k16 steps of Q K^T");
+
+// K and V tiles in flight, each in a ring of this many stages: two at d =
+// 64; three at d = 40, whose P V is the narrower m64n40k16 (the two
+// together 4 % faster at (4, 8, 4096, 40) on an H100 80GB HBM3 at 700 W,
+// either alone within 1 %: tools/k1_d40_variants.py).
+template <int DH>
+__host__ __device__ constexpr int stages() {
+  return DH < BOX ? 3 : 2;
+}
+// Dynamic shared memory: Q, the K ring and the V ring, + alignment slack.
+template <int DH>
+constexpr size_t smem_bytes() {
+  return 1024 + Q_BYTES + 2 * stages<DH>() * TILE_BYTES;
+}
+}  // namespace fwd
 
 // ------------------------------------------------------------------ kernel
 
-// grid (query tiles of ROWS rows, bh), NT threads. Accumulator layouts (thread
-// tw of a consumer warpgroup, w = tw / 32, g = lane / 4, t = lane % 4):
-// element i of S (64 x 128) or O (64 x 64) is row 16 w + g + 8 ((i / 2) % 2),
-// column 8 (i / 4) + 2 t + i % 2.
-__global__ void __launch_bounds__(d64::NT, 1)
-flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+// grid (query tiles of ROWS rows, bh), NT threads; head dim DH (40 or 64),
+// o (bh, sq, DH). Accumulator layouts (thread tw of a consumer warpgroup, w =
+// tw / 32, g = lane / 4, t = lane % 4): element i of S (64 x 128) or O (64 x
+// DH) is row 16 w + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2.
+template <int DH>
+__global__ void __launch_bounds__(fwd::NT, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out, int sq, int sk,
                       float scale2) {
-  using namespace d64;
+  using namespace fwd;
+  constexpr int KS = qk_steps<DH>();
+  constexpr int STAGES = stages<DH>();
+  constexpr int KV_BYTES = BN * DH * 2;  // a K or V tile as TMA lands it
   extern __shared__ unsigned char smem_raw[];
   // Q landed, then per stage: K full, V full, K empty, V empty.
   __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
@@ -181,6 +222,16 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if constexpr (DH < BOX) {
+    // K lands in boxes of its DH columns, so TMA never writes the rest of
+    // its rows, and Q K^T's last k16 step reads 8 of them against Q's
+    // zero-filled columns: the K ring starts zeroed, so that no stale NaN
+    // meets those zeros.
+    for (int i = threadIdx.x; i < STAGES * TILE_BYTES / 16; i += NT)
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(k_s + 16 * i), "r"(0)
+                   : "memory");
+    fence_proxy_async();  // the zeros before TMA and wgmma touch the ring
+  }
   __syncthreads();
 
   // The role by warpgroup, through a shuffle so the compiler knows it is
@@ -198,10 +249,10 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = j % STAGES;
         const uint32_t ph = (j / STAGES) & 1;
         if (j >= STAGES) mbar_wait(k_empty(s), ph ^ 1);  // tile j - STAGES released
-        mbar_expect_tx(k_full(s), TILE_BYTES);
+        mbar_expect_tx(k_full(s), KV_BYTES);
         tma_load(k_s + s * TILE_BYTES, &tm_k, k_full(s), j * BN, bh);
         if (j >= STAGES) mbar_wait(v_empty(s), ph ^ 1);
-        mbar_expect_tx(v_full(s), TILE_BYTES);
+        mbar_expect_tx(v_full(s), KV_BYTES);
         tma_load(v_s + s * TILE_BYTES, &tm_v, v_full(s), j * BN, bh);
       }
     }
@@ -215,28 +266,34 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto dv = [&](int s) { return desc_sw128(v_s + s * TILE_BYTES, LBO_MN_MAJOR); };
 
     float sc[SN];         // S of the current tile, then its p = 2^(s - m2)
-    float acc[32];        // O, unnormalized
+    float acc[DH / 2];    // O, unnormalized: DH columns
     uint32_t pk[SN / 2];  // the previous tile's p in bf16: the A fragments of P V
     // Rows g and g + 8: the running max (base 2) and this thread's share of
     // the running sum.
     float m2[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
     float cf[2];  // the last softmax's factor for the old sum and output
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
 
-    // S = Q K^T of the tile in stage s, four k16 steps (32 bytes each along
+    // S = Q K^T of the tile in stage s, KS k16 steps (32 bytes each along
     // the swizzled row).
     auto issue_qk = [&](int s) {
       const uint64_t db = dk(s);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) wgmma_ss_n128(sc, dq + 2 * ks, db + 2 * ks, ks);
+      for (int ks = 0; ks < KS; ++ks) wgmma_ss_n128(sc, dq + 2 * ks, db + 2 * ks, ks);
       wgmma_commit();
     };
-    // O += P V of the tile in stage s, eight k16 steps of 16 keys (2048 bytes).
+    // O += P V of the tile in stage s, eight k16 steps of 16 keys (2048
+    // bytes), over V's first DH columns.
     auto issue_pv = [&](int s) {
       const uint64_t db = dv(s);
 #pragma unroll
-      for (int ks = 0; ks < BN / 16; ++ks) wgmma_rs_n64(acc, pk + 4 * ks, db + 128 * ks);
+      for (int ks = 0; ks < BN / 16; ++ks) {
+        if constexpr (DH == 40)
+          wgmma_rs_n40(acc, pk + 4 * ks, db + 128 * ks);
+        else
+          wgmma_rs_n64(acc, pk + 4 * ks, db + 128 * ks);
+      }
       wgmma_commit();
     };
     // The online softmax of tile j's scores: with a true mask (the last
@@ -284,7 +341,7 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto rescale_o = [&]() {
       if (__all_sync(0xffffffffu, cf[0] == 1.f && cf[1] == 1.f)) return;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= cf[(i >> 1) & 1];
+      for (int i = 0; i < DH / 2; ++i) acc[i] *= cf[(i >> 1) & 1];
     };
     auto pack_p = [&]() {
 #pragma unroll
@@ -347,15 +404,16 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
       lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
     }
+    // The first DH columns of O, groups of 8 at a row stride of DH.
     const float inv[2] = {1.f / lsum[0], 1.f / lsum[1]};
     const size_t head = (size_t)bh * sq;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = q0 + c * BM + 16 * w + g + 8 * h;
       if (r >= sq) continue;
-      uint32_t* orow = reinterpret_cast<uint32_t*>(o + (head + r) * D);
+      uint32_t* orow = reinterpret_cast<uint32_t*>(o + (head + r) * DH);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DH / 8; ++n)
         orow[4 * n + t] =
             pack_bf16(acc[4 * n + 2 * h] * inv[h], acc[4 * n + 2 * h + 1] * inv[h]);
       if (m_out != nullptr && t == 0) {
@@ -367,7 +425,9 @@ flash_d64_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // The tensor maps of q (bh, sq, D) and k, v (bh, sk, D), bf16, with boxes
-// of q_box, k_box and v_box rows: 0 on success, else a cudaError_t.
+// of q_box, k_box and v_box rows and 64 columns; at D = 40 q's last 24
+// columns zero-filled, and k's and v's boxes narrow, of their 40 columns
+// (sm90.cuh:encode_rows). 0 on success, else a cudaError_t.
 template <int D>
 int encode_qkv(CUtensorMap& tq, CUtensorMap& tk, CUtensorMap& tv, const void* q,
                const void* k, const void* v, int bh, int sq, int sk, int q_box, int k_box,
@@ -375,8 +435,8 @@ int encode_qkv(CUtensorMap& tq, CUtensorMap& tk, CUtensorMap& tv, const void* q,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const bool ok = encode_rows(fn, &tq, q, D, sq, bh, q_box) &&
-                  encode_rows(fn, &tk, k, D, sk, bh, k_box) &&
-                  encode_rows(fn, &tv, v, D, sk, bh, v_box);
+                  encode_rows(fn, &tk, k, D, sk, bh, k_box, D < 64) &&
+                  encode_rows(fn, &tv, v, D, sk, bh, v_box, D < 64);
   return ok ? 0 : cudaErrorInvalidValue;
 }
 
@@ -421,7 +481,7 @@ constexpr float LN2 = 0.6931471805599453f;
 // with several, the split writes its slice of the f32 partials (part_o,
 // m_out, l_out: the unnormalized output, the row max and the row sum),
 // which flash_merge_kernel<bf16> combines. Accumulator layout as
-// flash_d64_sm90_kernel's: element i is row 16 w + g + 8 ((i / 2) % 2),
+// flash_fwd_sm90_kernel's: element i is row 16 w + g + 8 ((i / 2) % 2),
 // column 8 (i / 4) + 2 t + i % 2.
 __global__ void __launch_bounds__(d512::NT, 1)
 flash_d512_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -686,35 +746,43 @@ int launch_d512(const void* q, const void* k, const void* v, bf16* o, float* m, 
   return launch_flash_merge<bf16>(p, nsplit, rows, o, m, l, stream);
 }
 
+// flash_fwd_sm90_kernel at head dim DH (40 or 64).
+template <int DH>
+int launch_fwd(const void* q, const void* k, const void* v, bf16* o, float* m, float* l,
+               int bh, int sq, int sk, float scale, cudaStream_t stream) {
+  using namespace fwd;
+  CUtensorMap tq, tk, tv;
+  if (int bad = encode_qkv<DH>(tq, tk, tv, q, k, v, bh, sq, sk, ROWS, BN, BN)) return bad;
+  constexpr size_t SMEM = smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + ROWS - 1) / ROWS, bh);
+  flash_fwd_sm90_kernel<DH><<<grid, NT, SMEM, stream>>>(tq, tk, tv, o, m, l, sq, sk,
+                                                        scale * LOG2E);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The signature of p2p_flash_attn_fwd_bf16 (flash_attn.cu), for d = 64 and
-// 512: q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), contiguous bf16 on
-// 16-byte boundaries; m and l (bh, sq) f32, both null (K1) or both non-null
-// (K3). At d = 64 nsplit must be 1 and part null; at d = 512 nsplit key
-// splits (1 to the 128-key tiles), and with more than one, part is f32
-// scratch of nsplit * bh * sq * (d + 2) values. Returns a cudaError_t (0 on
-// success).
+// q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), contiguous bf16 on
+// 16-byte boundaries, d = 40, 64 or 512; m and l (bh, sq) f32, both null
+// (K1) or both non-null (K3). At d = 40 and 64 nsplit must be 1 and part
+// null; at d = 512 nsplit key splits (1 to the 128-key tiles), and with more
+// than one, part is f32 scratch of nsplit * bh * sq * (d + 2) values. Returns
+// a cudaError_t (0 on success).
 extern "C" int p2p_flash_attn_fwd_bf16_sm90(const void* q, const void* k, const void* v,
                                             void* o, float* m, float* l, float* part,
                                             int nsplit, int bh, int sq, int sk, int d,
                                             float scale, void* stream) {
   if ((m == nullptr) != (l == nullptr) || bh < 1 || bh > 65535 || sq < 1 || sk < 1)
     return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == d512::D)
-    return launch_d512(q, k, v, static_cast<bf16*>(o), m, l, part, nsplit, bh, sq, sk, scale,
-                       static_cast<cudaStream_t>(stream));
-  using namespace d64;
-  if (d != D || nsplit != 1 || part != nullptr) return cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  if (int bad = encode_qkv<D>(tq, tk, tv, q, k, v, bh, sq, sk, ROWS, BN, BN)) return bad;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_d64_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + ROWS - 1) / ROWS, bh);
-  flash_d64_sm90_kernel<<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<bf16*>(o), m, l, sq, sk, scale * LOG2E);
-  return cudaGetLastError();
+    return launch_d512(q, k, v, static_cast<bf16*>(o), m, l, part, nsplit, bh, sq, sk, scale, s);
+  if ((d != 40 && d != 64) || nsplit != 1 || part != nullptr) return cudaErrorInvalidValue;
+  return (d == 40 ? launch_fwd<40> : launch_fwd<64>)(q, k, v, static_cast<bf16*>(o), m, l, bh,
+                                                      sq, sk, scale, s);
 }
 
 extern "C" const char* p2p_cuda_error_string(int code) {

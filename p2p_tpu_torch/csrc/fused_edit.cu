@@ -81,7 +81,7 @@
 // transform over 100 keys was 1.005e-2 of the largest magnitude from the JAX
 // kernel, past the 1e-2 bar; as a pair, 5.0e-3);
 // edit_attn_bf16_kernel runs each pass as one bf16 tensor-core pass
-// (attn_bf16.cuh, as K1's bf16 kernel), whose q k^T takes the exact
+// (attn_bf16.cuh), whose q k^T takes the exact
 // products of the bf16 q and k in f32 (the JAX kernel upcasts them to f32
 // and multiplies there: the same values) and whose normalized P is rounded
 // to bf16 before P V, as the JAX kernel rounds its probability rows (the
@@ -665,11 +665,9 @@ edit_attn_bf16_kernel(EditArgsBf16 a) {
     const size_t qk = bp ? brow : row;
     const bf16* vh = !edit ? a.v + row * ks : (bp ? a.v1 : a.v2) + erow * ks;
     const bf16* vl = !edit ? nullptr : (bp ? a.v1lo : a.v2lo) + erow * ks;
-    attend_bf16<D, TileBf16<D>::BS, WARPS, true, true>(
-                                          a.q + qk * qs, a.k + qk * ks, vh, vl, oh, q0,
-                                          a.pixels, a.keys, a.scale2, p > 0,
-                                          reinterpret_cast<bf16*>(smem_eb), nullptr,
-                                          nullptr);
+    attend_bf16<D, TileBf16<D>::BS, WARPS, true>(a.q + qk * qs, a.k + qk * ks, vh, vl, oh,
+                                                 q0, a.pixels, a.keys, a.scale2, p > 0,
+                                                 reinterpret_cast<bf16*>(smem_eb));
   }
   if (npass == 0) {  // every key's weight is 0
     for (int i = threadIdx.x; i < A::ROWS * D; i += NT)

@@ -214,6 +214,23 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 40, f32) += A (64 x 16, bf16 in registers) B (16 x 40), B
+// MN-major in shared memory: the first 40 columns of a 64-column swizzled
+// tile, as wgmma_rs_n64 reads all 64.
+__device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n"
+      "}\n"
+      : P2P_F8(d, 0), P2P_F8(d, 8), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 64, f32) = [d +] A (64 x 16, bf16 in registers) B (16 x 64), B
 // K-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n64_kb(float (&d)[32], const uint32_t* a, uint64_t db,
@@ -363,14 +380,23 @@ inline EncodeTiled encode_tiled() {
 // past `rows`, and at d = 40 the box's columns 40..63, so a 40-wide row
 // lands as a 64-wide one with zeros after it (its 80-byte stride is a
 // multiple of 16, as TMA requires; the zeros count toward the box's bytes).
-// At d = 512 a row lands as eight boxes, loaded by tma_load_col at columns
-// 0, 64, .... A box never reads the next head's rows.
+// With `narrow` (d < 64) the box is (d, box_rows, 1) instead: TMA lands each
+// row in the first 2 d bytes of its 128-byte swizzle row, counts only those
+// bytes, and leaves the rest of the swizzle row as it was (the layout stays
+// the 64-column one): the d = 40 forward, whose K and V stream through such
+// boxes, ran 1.2x as long with the zero-filled ones on an H100 80GB HBM3 at
+// 700 W (tools/k1_d40_variants.py). Its Q, landed once a block, keeps the
+// zero fill, as do the K4 passes' streamed tiles until the narrow landing is
+// measured there (it needs their rings zeroed once). At d = 512 a row lands as
+// eight boxes, loaded by tma_load_col at columns 0, 64, .... A box never
+// reads the next head's rows.
 inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int rows,
-                        int bh, int box_rows) {
+                        int bh, int box_rows, bool narrow = false) {
   constexpr int BOX_COLS = 64;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)2 * d, (cuuint64_t)rows * 2 * d};
-  const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)box_rows, 1};
+  cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)box_rows, 1};
+  if (narrow) box[0] = d;
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels and their dispatch.
 
 - K1 :func:`flash.flash_attention` — flash attention forward
-  (``csrc/flash_attn.cu``).
+  (``csrc/flash_attn.cu`` in f32, ``csrc/flash_fwd_sm90.cu`` in bf16).
 - K3 :func:`flash.flash_attention_residuals` — the same kernel, also
   writing each row's softmax max and sum.
 - K4 :func:`flash_bwd.flash_attention_bwd` — flash attention backward, a

@@ -1,7 +1,7 @@
 """The bf16 kernels' arithmetic in plain PyTorch, for the CPU tests.
 
-K1 at d = 40 and K2 also run on bf16 operands (``csrc/attn_bf16.cuh``),
-and K1 at d = 64 and 512 on Hopper's ``wgmma`` (``csrc/flash_fwd_sm90.cu``): one
+K2 also runs on bf16 operands (``csrc/attn_bf16.cuh``), and K1/K3 at
+d = 40, 64 and 512 on Hopper's ``wgmma`` (``csrc/flash_fwd_sm90.cu``): one
 bf16 tensor-core product a term with f32 accumulation. A product of two
 bf16 values is exact in f32, so the scores
 are the exact products summed in f32; what sets these kernels apart from
@@ -10,7 +10,7 @@ their plain versions is where they round to bf16. :func:`flash` and
 rounding where they round:
 
 - K1 rounds the unnormalized probabilities ``p = 2^(s − m2)`` of each
-  step of keys (:func:`k1_step`: the kernel's key tile; it holds the
+  step of keys (:data:`K1_STEP`: the kernel's key tile; it holds the
   running max ``m2`` in base 2) to bf16 before ``p·v``, as the JAX
   library's flash kernel does; the row sum
   takes them unrounded, and the output is divided by it and rounded once;
@@ -32,11 +32,10 @@ import math
 import torch
 
 
-def k1_step(d: int) -> int:
-    """Keys a step of the bf16 K1/K3 kernel at head dim ``d``: 128 for
-    ``flash_d64_sm90_kernel`` (d = 64) and ``flash_d512_sm90_kernel`` (d =
-    512), 64 for ``flash_d40_bf16_kernel``."""
-    return 128 if d in (64, 512) else 64
+# Keys a step of the bf16 K1/K3 kernels at every head dim:
+# ``flash_fwd_sm90_kernel<DH>`` (d = 40 and 64) and ``flash_d512_sm90_kernel``
+# (d = 512).
+K1_STEP = 128
 
 
 def k2_step(d: int) -> int:
@@ -48,13 +47,13 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
           step: int | None = None, normalized: bool = False,
           residuals: bool = False):
     """Softmax attention of bf16 ``q, k, v`` as the bf16 kernels compute it,
-    ``step`` keys at a time (K1's, :func:`k1_step`, by default), P rounded
+    ``step`` keys at a time (K1's, :data:`K1_STEP`, by default), P rounded
     unnormalized (K1) or ``normalized`` (K2); returns the f32 output before
     its final rounding, and with ``residuals`` (K1 only) ``(out, l, m)`` as
     K3 writes them: ``m`` the row max in natural units, ``l`` the row sum of
     the unrounded ``exp(s − m)``."""
     f32 = torch.float32
-    step = step or k1_step(q.shape[-1])
+    step = step or K1_STEP
     scale2 = torch.tensor(scale, dtype=f32) * torch.tensor(math.log2(math.e), dtype=f32)
     if normalized:
         s = (q.float() @ k.float().transpose(-1, -2)) * scale2
@@ -64,18 +63,15 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     m2 = torch.full(q.shape[:-1], -math.inf, dtype=f32, device=q.device)
     l = torch.zeros(q.shape[:-1], dtype=f32, device=q.device)
     o = torch.zeros(q.shape, dtype=f32, device=q.device)
-    fused = q.shape[-1] in (64, 512)   # the sm90 kernels: s·scale2 − m2 in one FMA
     for k0 in range(0, k.shape[-2], step):
         kt, vt = k[..., k0:k0 + step, :].float(), v[..., k0:k0 + step, :].float()
         s = q.float() @ kt.transpose(-1, -2)
         # The max of the scaled scores is the scaled max: rounding is monotonic.
         m_new = torch.maximum(m2, s.amax(dim=-1) * scale2)
         c = torch.exp2(m2 - m_new)
-        if fused:   # exact product and difference in f64, rounded once
-            p = torch.exp2((s.double() * scale2.double()
-                            - m_new.double()[..., None]).float())
-        else:
-            p = torch.exp2(s * scale2 - m_new[..., None])
+        # s·scale2 − m2 in one fused multiply-add: the exact product and
+        # difference in f64, rounded once.
+        p = torch.exp2((s.double() * scale2.double() - m_new.double()[..., None]).float())
         l = l * c + p.sum(dim=-1)
         o = o * c[..., None] + p.to(torch.bfloat16).float() @ vt
         m2 = m_new

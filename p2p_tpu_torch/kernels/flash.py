@@ -27,18 +27,19 @@ null-text inversion's gradient steps. SD-2.1 runs K1 at ``(4, 5, 9216,
 and its VAE at ``(2, 1, 9216, 512)`` and, in the inversion, ``(1, 1, 9216,
 512)``, whose 288 and 144 blocks leave a short last round on 132 SMs.
 
-K1 and K3 also take bf16 q, k and v: at d = 40 (the U-Net's 64²-pixel
-self sites of a bf16 edit, and of a bf16 inversion's forwards and
-gradients) ``flash_d40_bf16_kernel`` (``mma.sync``); at d = 64 (SD-2.1's
-self sites) ``flash_d64_sm90_kernel`` and at d = 512 (the bf16 VAE encode
-of a bf16 inversion, (1, 1, 4096, 512) and (1, 1, 9216, 512))
-``flash_d512_sm90_kernel``, both in ``csrc/flash_fwd_sm90.cu`` (their own
-library) on Hopper's ``wgmma`` and TMA, 128 keys a tile, the d = 512 one
-with the key split and merge. Each is one bf16 tensor-core pass a product
-with f32 accumulation, the unnormalized P of a key tile rounded to bf16
-before P·V as the JAX library kernel rounds it (``p.astype(v.dtype)``;
-:func:`.bf16.k1_step` gives the tile), the output rounded to bf16 once,
-``m`` and ``l`` f32 (``l`` the sum of the unrounded P).
+K1 and K3 also take bf16 q, k and v, on Hopper's ``wgmma`` and TMA in
+``csrc/flash_fwd_sm90.cu`` (a library of its own), 128 keys a tile: at
+d = 40 (the U-Net's 64²-pixel self sites of a bf16 edit, and of a bf16
+inversion's forwards and gradients) and d = 64 (SD-2.1's self sites)
+``flash_fwd_sm90_kernel<DH>``, whose 40-column rows land by TMA in the
+64-column swizzled layout of d = 64; at d = 512 (the bf16 VAE encode of a
+bf16 inversion, (1, 1, 4096, 512) and (1, 1, 9216, 512))
+``flash_d512_sm90_kernel``, with the key split and merge. Each is one bf16
+tensor-core pass a product with f32 accumulation, the unnormalized P of a
+key tile rounded to bf16 before P·V as the JAX library kernel rounds it
+(``p.astype(v.dtype)``; :data:`.bf16.K1_STEP` is the tile), the output
+rounded to bf16 once, ``m`` and ``l`` f32 (``l`` the sum of the unrounded
+P).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its launches by dtype
@@ -165,10 +166,9 @@ def merge_partials(outs, ls, ms):
     return out / l[..., None], l, m
 
 
-#: The library of each forward entry: bf16 at d = 64 and 512 runs on
-#: Hopper's wgmma and TMA in a library of its own.
+#: The library of each forward entry: bf16 runs on Hopper's wgmma and TMA
+#: in a library of its own.
 ENTRIES = {"p2p_flash_attn_fwd": "flash_attn",
-           "p2p_flash_attn_fwd_bf16": "flash_attn",
            "p2p_flash_attn_fwd_bf16_sm90": "flash_fwd_sm90"}
 _FORWARD: dict = {}
 
@@ -189,9 +189,7 @@ def forward_entry(entry: str):
 
 def entry_for(dtype: torch.dtype, d: int) -> str:
     """The forward C entry that runs ``dtype`` at head dim ``d``."""
-    if dtype != torch.bfloat16:
-        return "p2p_flash_attn_fwd"
-    return "p2p_flash_attn_fwd_bf16_sm90" if d in (64, 512) else "p2p_flash_attn_fwd_bf16"
+    return "p2p_flash_attn_fwd_bf16_sm90" if dtype == torch.bfloat16 else "p2p_flash_attn_fwd"
 
 
 def _lib() -> ctypes.CDLL:

@@ -5,7 +5,7 @@ the JAX package, on the CPU.
 
 The kernel runs only on the card (``chip_smoke.py`` holds it against the
 plain version there). Here its arithmetic, ``kernels.bf16.flash`` at the
-kernel's key tile (``kernels.bf16.k1_step(512)`` = 128: each tile's
+kernel's key tile (``kernels.bf16.K1_STEP`` = 128: each tile's
 unnormalized P is rounded to bf16 before P·V, and ``s·scale2 − m2`` is one
 fused multiply-add), is held against the Pallas flash kernel under the
 interpreter at (1, 1, 512, 512) in blocks of 256 (output within 1e-2 of
@@ -61,7 +61,7 @@ def test_k1_k3_d512_bf16_emulation_at_the_kernel_tile_matches_pallas():
                 jnn.flash_attention_residuals(jq, jk, jv, SCALE, 256)]
         want1 = np.asarray(jnn.flash_attention_tpu(jq, jk, jv, SCALE, 256)
                            .astype(jnp.float32))
-    assert kbf16.k1_step(D) == 128
+    assert kbf16.K1_STEP == 128
     out, l, m = kbf16.flash(q, k, v, SCALE, residuals=True)
     assert l.dtype == m.dtype == torch.float32 and l.shape == m.shape == (1, 1, 512)
     out16 = out.to(TB).float()
@@ -102,7 +102,7 @@ def test_bf16_d512_routes_to_the_sm90_entry():
     assert entry == "p2p_flash_attn_fwd_bf16_sm90"
     assert flash.ENTRIES[entry] == "flash_fwd_sm90"
     assert flash.entry_for(torch.float32, D) == "p2p_flash_attn_fwd"
-    assert flash.entry_for(TB, 40) == "p2p_flash_attn_fwd_bf16"
+    assert flash.entry_for(TB, 40) == "p2p_flash_attn_fwd_bf16_sm90"
 
 
 def test_d512_sm90_source_runs_on_wgmma_and_tma_with_the_shared_merge():

@@ -1,10 +1,10 @@
-"""K1 and K3 in bf16 at d = 64 as ``flash_d64_sm90_kernel`` computes them
+"""K1 and K3 in bf16 at d = 64 as ``flash_fwd_sm90_kernel<64>`` computes them
 (``p2p_tpu_torch/csrc/flash_fwd_sm90.cu``: wgmma and TMA, 128 keys a tile),
 against the JAX package, on the CPU.
 
 The kernel runs only on the card (``chip_smoke.py`` holds it against the
 plain version there). Here its arithmetic, ``kernels.bf16.flash`` at the
-kernel's key tile (``kernels.bf16.k1_step(64)`` = 128: each tile's
+kernel's key tile (``kernels.bf16.K1_STEP`` = 128: each tile's
 unnormalized P is rounded to bf16 before P·V), is held against the Pallas
 flash kernel under the interpreter at (1, 2, 512, 64) in blocks of 128
 (output within 1e-2 of the largest magnitude, K3's ``l`` and ``m`` within
@@ -53,7 +53,7 @@ def test_k1_k3_d64_bf16_emulation_at_the_kernel_tile_matches_pallas():
                 jnn.flash_attention_residuals(jq, jk, jv, SCALE, 128)]
         want1 = np.asarray(jnn.flash_attention_tpu(jq, jk, jv, SCALE, 128)
                            .astype(jnp.float32))
-    assert kbf16.k1_step(D) == 128
+    assert kbf16.K1_STEP == 128
     out, l, m = kbf16.flash(q, k, v, SCALE, residuals=True)
     assert l.dtype == m.dtype == torch.float32 and l.shape == m.shape == (1, 2, 512)
     out16 = out.to(TB).float()
@@ -89,9 +89,10 @@ def test_k1_k3_d64_bf16_emulation_ragged_matches_plain(sq, sk):
 
 @pytest.mark.parametrize("dtype,d,entry,library", [
     (TB, 64, "p2p_flash_attn_fwd_bf16_sm90", "flash_fwd_sm90"),
-    (TB, 40, "p2p_flash_attn_fwd_bf16", "flash_attn"),
-    # bf16 at d = 512 moved to wgmma and TMA; the case keeps the id it was
-    # first collected under.
+    # bf16 at d = 40 and 512 moved to wgmma and TMA; each case keeps the id
+    # it was first collected under.
+    pytest.param(TB, 40, "p2p_flash_attn_fwd_bf16_sm90", "flash_fwd_sm90",
+                 id="dtype1-40-p2p_flash_attn_fwd_bf16-flash_attn"),
     pytest.param(TB, 512, "p2p_flash_attn_fwd_bf16_sm90", "flash_fwd_sm90",
                  id="dtype2-512-p2p_flash_attn_fwd_bf16-flash_attn"),
     (torch.float32, 64, "p2p_flash_attn_fwd", "flash_attn"),

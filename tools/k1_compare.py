@@ -1,30 +1,34 @@
 #!/usr/bin/env python3
-"""K1 and K3 in bf16 at head dim 64 (and at d = 512, below) from another
-checkout against this checkout's ``p2p_flash_attn_fwd_bf16_sm90``
-(``csrc/flash_fwd_sm90.cu``),
-on the card, on the same inputs: the other checkout's
-``p2p_flash_attn_fwd_bf16_sm90`` where it has that source (then held bit
-for bit), else its ``csrc/flash_attn.cu``'s ``p2p_flash_attn_fwd_bf16``.
+"""K1 and K3 in bf16 at head dims 40 and 64 (and at d = 512, below) from
+another checkout against this checkout's ``p2p_flash_attn_fwd_bf16_sm90``
+(``csrc/flash_fwd_sm90.cu``, ``flash_fwd_sm90_kernel<DH>``), on the card,
+on the same inputs: at each head dim the other checkout's
+``p2p_flash_attn_fwd_bf16_sm90`` where its ``flash_fwd_sm90.cu`` has that
+head dim's instance (then held bit for bit), else its
+``csrc/flash_attn.cu``'s ``mma.sync`` kernel behind
+``p2p_flash_attn_fwd_bf16``.
 
     python tools/k1_compare.py OTHER_CHECKOUT
 
 OTHER_CHECKOUT is the root of another tree of this repository, e.g. the
 parent commit unpacked by ``git archive``; its source is built with this
 checkout's ``nvcc`` flags into ``build/p2p_tpu_torch/``. Shapes: K1 at
-(4, 5, 9216, 64), (4, 10, 2304, 64) and (4, 5, 4096, 64), K3 (``m`` and
-``l`` too) at (1, 5, 9216, 64), (1, 10, 2304, 64) and (1, 5, 4096, 64).
-Each pair of outputs is held within ``BF16_TOL`` of the other's largest
-magnitude (against the mma.sync kernel not bitwise: the key tile moves
-where P rounds), ``m`` and ``l`` within ``TC_TOL`` relative, and each
-output against the plain version within the same bars; against another
-sm90 kernel also bit for bit. The two are timed in turns (other, this, this, other) beside
-SDPA in bf16 and the bound. Then d = 40, which stays on the ``mma.sync``
-kernel: both checkouts' ``p2p_flash_attn_fwd_bf16`` at (1, 8, 4096, 40),
-``m`` and ``l`` too, bit for bit; then the host's µs a call at a shape
-whose device time is short, C entry against C entry, and wrapper against
-wrapper (each in a process of its own) when OTHER_CHECKOUT holds the whole
-package. Writes ``chiprun_out/k1_compare.json``. Exits 1 if an output is out
-of its bar. Needs one CUDA card.
+(4, 8, 4096, 40) and (1, 8, 4096, 40) (SD-1.4's 64² self sites in a bf16
+edit and in a bf16 inversion's forwards), K3 (``m`` and ``l`` too) at (1,
+8, 4096, 40) (the inversion's gradient sites); K1 at (4, 5, 9216, 64), (4,
+10, 2304, 64) and (4, 5, 4096, 64), K3 at (1, 5, 9216, 64), (1, 10, 2304,
+64) and (1, 5, 4096, 64) (SD-2.1's). Each pair of outputs is held within
+``BF16_TOL`` of the other's largest magnitude (against the ``mma.sync``
+kernel not bitwise: the key tile moves where P rounds), ``m`` and ``l``
+within ``TC_TOL`` relative, and each output against the plain version
+within the same bars; against another sm90 instance also bit for bit. The
+two are timed in turns (other, this, this, other) beside SDPA in bf16, the
+bound and the exponentials' floor (``chip_smoke.ex2_floor_ms``). Then the
+host's µs a call at a shape whose device time is short, C entry against C
+entry, and wrapper against wrapper (each in a process of its own) when
+OTHER_CHECKOUT holds the whole package. Writes
+``chiprun_out/k1_compare.json``. Exits 1 if an output is out of its bar.
+Needs one CUDA card.
 
 Also d = 512, the VAE's head: bf16 K1 at (1, 1, 4096, 512) and (1, 1,
 9216, 512) and K3 at (1, 1, 4100, 512) from this checkout's
@@ -59,7 +63,8 @@ import chip_smoke as cs  # noqa: E402
 from p2p_tpu_torch import kernels as K  # noqa: E402
 from p2p_tpu_torch.kernels import build, flash  # noqa: E402
 
-SHAPES = (((4, 5, 9216, 64), False), ((4, 10, 2304, 64), False),
+SHAPES = (((4, 8, 4096, 40), False), ((1, 8, 4096, 40), False), ((1, 8, 4096, 40), True),
+          ((4, 5, 9216, 64), False), ((4, 10, 2304, 64), False),
           ((4, 5, 4096, 64), False), ((1, 5, 9216, 64), True),
           ((1, 10, 2304, 64), True), ((1, 5, 4096, 64), True))
 HOST_SHAPE = (1, 2, 300, 64)   # and Sk = 70: the host, not the device, sets the pace
@@ -226,15 +231,18 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("k1_compare: no CUDA device is visible", file=sys.stderr)
         return 2
-    # Bit for bit at d = 64 only against another sm90 kernel.
-    bitwise64 = os.path.exists(os.path.join(argv[1], "p2p_tpu_torch/csrc/flash_fwd_sm90.cu"))
-    entries = {"other": (other_entry(argv[1], "flash_fwd_sm90", "p2p_flash_attn_fwd_bf16_sm90")
-                         if bitwise64 else
-                         other_entry(argv[1], "flash_attn", "p2p_flash_attn_fwd_bf16")),
-               "other_d40": other_entry(argv[1], "flash_attn", "p2p_flash_attn_fwd_bf16"),
-               "this": flash.forward_entry("p2p_flash_attn_fwd_bf16_sm90"),
-               "this_d40": flash.forward_entry("p2p_flash_attn_fwd_bf16")}
-    same64 = True
+    # Bit for bit at a head dim only against another sm90 instance of it: a
+    # tree with flash_fwd_sm90.cu has d = 64 there, and d = 40 where it
+    # instantiates the template at 40.
+    sm90 = os.path.join(argv[1], "p2p_tpu_torch/csrc/flash_fwd_sm90.cu")
+    src = open(sm90).read() if os.path.exists(sm90) else ""
+    bitwise = {40: "launch_fwd<40>" in src, 64: bool(src)}
+    entries = {"this": flash.forward_entry("p2p_flash_attn_fwd_bf16_sm90")}
+    for d, on_sm90 in bitwise.items():
+        entries[f"other{d}"] = (
+            other_entry(argv[1], "flash_fwd_sm90", "p2p_flash_attn_fwd_bf16_sm90") if on_sm90
+            else other_entry(argv[1], "flash_attn", "p2p_flash_attn_fwd_bf16"))
+    same = {40: True, 64: True}
     card = cs.card_line()
     print(card)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -253,6 +261,7 @@ def main(argv) -> int:
 
     for shape, k3 in SHAPES:
         b, h, s, d = shape
+        other = f"other{d}"
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
 
@@ -260,7 +269,7 @@ def main(argv) -> int:
             res = [torch.empty((b, h, s), device="cuda") for _ in range(2)] if k3 else [None] * 2
             return (torch.empty_like(q), *res)
 
-        bufs = {name: outputs() for name in ("other", "this")}
+        bufs = {name: outputs() for name in (other, "this")}
         for name, (o, m, l) in bufs.items():
             call(name, q, k, v, o, m, l, s)
         again = outputs()
@@ -273,58 +282,45 @@ def main(argv) -> int:
         if k3:
             checks += [("m", 1, p_m, cs.TC_TOL), ("l", 2, p_l, cs.TC_TOL)]
         for what, i, want, tol in checks:
-            this, other = bufs["this"][i], bufs["other"][i]
-            for key, a, ref in (("this_vs_other", this, other), ("this_vs_plain", this, want),
-                                ("other_vs_plain", other, want)):
+            this, theirs = bufs["this"][i], bufs[other][i]
+            for key, a, ref in (("this_vs_other", this, theirs), ("this_vs_plain", this, want),
+                                ("other_vs_plain", theirs, want)):
                 e = cs.max_err(torch, a, ref) / ref.double().abs().max().item()
                 errs[f"{what} {key}"] = e
                 if e > tol:
                     bad.append(f"{tag} {what} {key}: {e:.3g} > {tol}")
             if not torch.equal(this, again[i]):
                 bad.append(f"{tag} {what}: two launches differ")
-            if bitwise64 and not torch.equal(this, other):
-                same64 = False
+            if bitwise[d] and not torch.equal(this, theirs):
+                same[d] = False
                 bad.append(f"{tag} {what}: not bit for bit the other sm90 kernel's")
-        times = {"other": [], "this": []}
+        times = {other: [], "this": []}
         iters = 10 if s == 9216 else 20
-        for name in ("other", "this", "this", "other"):
+        for name in (other, "this", "this", other):
             times[name].append(cs.cuda_ms(torch, lambda: call(name, q, k, v, *bufs[name], s),
                                           iters))
         sdpa = cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, scale=d ** -0.5), iters)
         blocks = -(-s // 128) * b * h
-        row = {"shape": list(shape), "k3": k3, "errors": errs,
-               "other_ms": times["other"], "this_ms": times["this"], "sdpa_bf16_ms": sdpa,
+        this_ms = sum(times["this"]) / 2
+        row = {"shape": list(shape), "k3": k3, "errors": errs, "bitwise_expected": bitwise[d],
+               "other_ms": times[other], "this_ms": times["this"], "sdpa_bf16_ms": sdpa,
+               "this_over_sdpa": this_ms / sdpa,
+               "this_over_other": this_ms / (sum(times[other]) / 2),
                "blocks": blocks, "waves": blocks / sms,
+               "ex2_floor_ms": cs.ex2_floor_ms(torch, b * h * s * s),
                **cs.bound(4.0 * b * h * s * s * d, 4 * 2 * q.numel() + (8 * b * h * s if k3 else 0),
                           True, bf16=True)}
         rows.append(row)
-        print(f"{tag}: other {times['other']} ms, this {times['this']} ms, sdpa bf16 "
-              f"{sdpa:.4f} ms, bound {row['bound_ms']:.4f} ms, {blocks} blocks = "
-              f"{row['waves']:.2f} waves; " +
+        print(f"{tag}: other {times[other]} ms, this {times['this']} ms, sdpa bf16 "
+              f"{sdpa:.4f} ms (this / sdpa {row['this_over_sdpa']:.3f}, this / other "
+              f"{row['this_over_other']:.3f}), bound {row['bound_ms']:.4f} ms, ex2 floor "
+              f"{row['ex2_floor_ms']:.4f} ms, {blocks} blocks = {row['waves']:.2f} waves; " +
               ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items()))
-
-    # d = 40 stays on the mma.sync kernel of attn_bf16.cuh: bit for bit the
-    # other checkout's, with and without m and l.
-    shape = (1, 8, 4096, 40)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    same40 = True
-    for k3 in (False, True):
-        d40 = {}
-        for name in ("other_d40", "this_d40"):
-            res = [torch.empty(shape[:3], device="cuda") for _ in range(2)] if k3 else [None] * 2
-            d40[name] = (torch.empty_like(q), *res)
-            call(name, q, k, v, *d40[name], shape[2])
-        same40 &= all(a is None or torch.equal(a, b)
-                      for a, b in zip(d40["other_d40"], d40["this_d40"]))
-    print(f"K1 and K3 bf16 d=40 {shape}: out (and m, l) bitwise equal to the other "
-          f"checkout's: {same40}")
-    if bitwise64:
-        print(f"K1 and K3 bf16 d=64, the six shapes: out (and m, l) bitwise equal to the "
-              f"other checkout's sm90 kernel: {same64}")
-    if not same40:
-        bad.append("d = 40: outputs differ from the other checkout's")
+    for d in (40, 64):
+        if bitwise[d]:
+            print(f"K1 and K3 bf16 d={d}: out (and m, l) bitwise equal to the other "
+                  f"checkout's sm90 kernel: {same[d]}")
     rows512 = d512_part(argv[1], sms, gen, stream, bad)
 
     # The host's time a call: C entry against C entry, then wrapper against
@@ -336,11 +332,11 @@ def main(argv) -> int:
             for _ in range(2))
     o = torch.empty_like(q)
     host = {}
-    for name, fn in (("other_entry", lambda: call("other", q, k, v, o, None, None, 70)),
+    for name, fn in (("other_entry", lambda: call("other64", q, k, v, o, None, None, 70)),
                      ("this_entry", lambda: call("this", q, k, v, o, None, None, 70)),
                      ("this_wrapper", lambda: K.flash_attention(q, k, v, d ** -0.5)),
                      ("this_entry_2", lambda: call("this", q, k, v, o, None, None, 70)),
-                     ("other_entry_2", lambda: call("other", q, k, v, o, None, None, 70))):
+                     ("other_entry_2", lambda: call("other64", q, k, v, o, None, None, 70))):
         for _ in range(50):
             fn()
         torch.cuda.synchronize()
@@ -358,8 +354,9 @@ def main(argv) -> int:
           ", ".join(f"{n} {us:.2f}" for n, us in host.items()))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "k1_compare.json"), "w") as f:
-        json.dump({"card": card, "rows": rows, "d512_rows": rows512, "d40_bitwise": same40,
-                   "d64_bitwise": same64 if bitwise64 else None, "host_us": host,
+        json.dump({"card": card, "rows": rows, "d512_rows": rows512,
+                   "d40_bitwise": same[40] if bitwise[40] else None,
+                   "d64_bitwise": same[64] if bitwise[64] else None, "host_us": host,
                    "failures": bad}, f, indent=1)
     for line in bad:
         print("FAIL", line)
