@@ -87,7 +87,8 @@ Phases, each of which raises on failure:
    of the embeddings; and the bf16 replay of its artifact (exact launch
    counts, the null-text invariant);
 8. SD-2.1 (``models/config.py:SD21`` and ``SD21_BASE``, head dim 64): K1
-   at d = 64 in f32 (``flash_d64_kernel``, 3xTF32, within ``TC_TOL``) and
+   at d = 64 in f32 (``flash_fwd_tf32_sm90_kernel``: 3xTF32 on tf32 wgmma
+   and TMA, its SASS and ptxas checked as bf16's; within ``TC_TOL``) and
    bf16 (``flash_fwd_sm90_kernel<64>``: wgmma and TMA, its SASS checked for
    HGMMA and UTMALDG and no HMMA; within ``BF16_TOL``) at the self sites
    of both configs, (4, 5, 9216, 64), (4, 10, 2304, 64) and (4, 5, 4096,
@@ -266,10 +267,18 @@ def card_line() -> str:
 
 
 def path_counts(K) -> dict:
-    """Every wrapper's launch count, K1's key-split merges and K2's folds,
-    f32 and bf16."""
+    """Every wrapper's launch count, K1's key-split merges, the f32 d = 64
+    forward's split passes and K2's folds, f32 and bf16."""
     return {**K.launch_counts(), "flash_merge": K.merge_launches(),
-            "fused_edit_fold": K.fold_launches(), **K.bf16_launch_counts()}
+            "flash_split": K.split_launches(), "fused_edit_fold": K.fold_launches(),
+            **K.bf16_launch_counts()}
+
+
+def split_passes(dims: dict) -> int:
+    """The split passes a run launches, given its K1/K3 launches by head dim
+    (``kernels.head_dim_launch_counts``): one before each K1 or K3 call in
+    f32 at d = 64."""
+    return dims.get("K1 f32 d=64", 0) + dims.get("K3 f32 d=64", 0)
 
 
 def vae_head_dim(cfg) -> int:
@@ -622,12 +631,15 @@ SM90_LIBRARIES = {"flash_fwd_sm90": ("flash_fwd_sm90_kernel<40>", "flash_fwd_sm9
                   "flash_bwd_sm90": tuple(f"flash_bwd_{p}_sm90_kernel<{d}>"
                                           for p in ("dkv", "dq") for d in (40, 64)),
                   "flash_bwd_tf32_sm90": ("flash_bwd_dkv_tf32_sm90_kernel",
-                                          "flash_bwd_dq_tf32_sm90_kernel")}
+                                          "flash_bwd_dq_tf32_sm90_kernel"),
+                  "flash_fwd_tf32_sm90": ("flash_fwd_tf32_sm90_kernel",)}
 
 
 #: Kernels of those libraries that are not on wgmma: the d = 512 key
-#: split's merge (``csrc/flash_merge.cuh``).
-SM90_PLAIN_KERNELS = {"flash_fwd_sm90": ("flash_merge_kernel",)}
+#: split's merge (``csrc/flash_merge.cuh``) and the f32 d = 64 forward's
+#: split of K and V.
+SM90_PLAIN_KERNELS = {"flash_fwd_sm90": ("flash_merge_kernel",),
+                      "flash_fwd_tf32_sm90": ("flash_split_kv_tf32_kernel",)}
 
 
 def kernel_instance(symbol: str):
@@ -744,9 +756,10 @@ def sdpa_bwd_graph_ms(torch, F, q, k, v, do, scale: float, iters: int) -> float:
 
 
 def k1_d64_phases(torch, K, F, dtype):
-    """K1 at d = 64, SD-2.1's head dim, in ``dtype`` (f32: flash_d64_kernel,
-    within ``TC_TOL``; bf16: flash_fwd_sm90_kernel<64>, within ``BF16_TOL`` of
-    the plain output's largest magnitude): the self sites of the 768-v
+    """K1 at d = 64, SD-2.1's head dim, in ``dtype`` (f32:
+    flash_fwd_tf32_sm90_kernel, 3xTF32 on tf32 wgmma, within ``TC_TOL``;
+    bf16: flash_fwd_sm90_kernel<64>, within ``BF16_TOL`` of the plain
+    output's largest magnitude): the self sites of the 768-v
     edit, (4, 5, 9216, 64) and (4, 10, 2304, 64), and of the 512-base one,
     (4, 5, 4096, 64), then the ragged lengths S = 4100 and Sq = 300 with
     Sk = 70; each bitwise across two launches, the path shapes timed beside
@@ -796,8 +809,8 @@ def k34_d64_phases(torch, K, F, dtype):
     gradient sites, in ``dtype``: 768-v's (1, 5, 9216, 64) and (1, 10,
     2304, 64) and 512-base's (1, 5, 4096, 64), then the ragged lengths S =
     4100, Sq = 300 with Sk = 70 and Sq = 70 with Sk = 300. Outputs and
-    gradients within ``TC_TOL`` (f32: flash_d64_kernel,
-    flash_bwd_{dkv,dq}_tf32_sm90_kernel, all 3xTF32) or ``BF16_TOL`` (bf16:
+    gradients within ``TC_TOL`` (f32: flash_fwd_tf32_sm90_kernel,
+    flash_bwd_{dkv,dq}_tf32_sm90_kernel, all 3xTF32 on tf32 wgmma) or ``BF16_TOL`` (bf16:
     flash_fwd_sm90_kernel<64> and flash_bwd_{dkv,dq}_sm90_kernel) of the plain
     versions' largest magnitude, K3's f32 ``m`` and ``l`` within ``TC_TOL``
     relative, each bitwise across two launches; the K4 passes take the
@@ -1396,6 +1409,7 @@ def inversion_path(torch, K, pipe, dtype=None, steps=STEPS, tag=None):
         want_dims[f"K1 f32 d={dv}"] = 2
     # the encode in the inversion's dtype, the reconstruction's decode in f32
     want["flash_merge"] = vae_merges(torch, pipe, 1, dtype) + vae_merges(torch, pipe, 1)
+    want["flash_split"] = split_passes(want_dims)
     dims = K.head_dim_launch_counts()
     if counts != want or dims != want_dims:
         raise RuntimeError(f"{tag} launch counts {counts} {dims}, expected {want} "
@@ -1483,6 +1497,7 @@ def replay_path(torch, K, pipe, art, image, dtype=None, f32_latents=None, tag=No
                 "fused_edit": steps * n_k2, "fused_edit_fold": steps * n_k2}
         want_dims = {f"K1 f32 d={d}": steps * n_k1, f"K1 f32 d={vae_head_dim(pipe.config)}": 1}
     want["flash_merge"] = vae_merges(torch, pipe, 2)
+    want["flash_split"] = split_passes(want_dims)
     if counts != want or dims != want_dims:
         raise RuntimeError(f"{tag} launch counts {counts} {dims}, expected {want} "
                            f"{want_dims}")
@@ -1570,6 +1585,7 @@ def sd21_path(torch, K, pipe):
                     "fused_edit": STEPS * n_k2, "fused_edit_fold": STEPS * n_k2}
             want_dims = {"K1 f32 d=64": STEPS * n_k1, "K1 f32 d=512": 1}
         want["flash_merge"] = vae_merges(torch, pipe, 2)
+        want["flash_split"] = split_passes(want_dims)
         if c != want or dims != want_dims:
             raise RuntimeError(f"{tag} launch counts {c} {dims}, expected {want} {want_dims}")
         if (img.shape != (2, SD21.image_size, SD21.image_size, 3) or img.dtype != torch.uint8
@@ -1637,6 +1653,13 @@ def sd21_inversion_path(torch, K, pipe):
     return {"f32": inv, "bf16": inv16, "replay": replay, "replay_bf16": replay16}
 
 
+#: What K1/K3 in f32 at d = 64 run on.
+F32_D64_UNITS = ("tensor cores, 3xTF32: tf32 wgmma (m64n64k8 Q K^T with Q's hi and lo "
+                 "in registers, m64n64k8 P V with P from registers and a transposed, "
+                 "k-permuted V copy) fed by TMA, 64-key tiles split once a call by "
+                 "flash_split_kv_tf32_kernel (CUDA cores)")
+
+
 def kernel_entry(name, source, replaces, launches, rows, **extra):
     head = rows[0]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1682,7 +1705,8 @@ def main() -> int:
     from p2p_tpu_torch.models.config import SD14
     from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
 
-    sass, sass_bwd, sass_bwd_tf32 = (sm90_sass(build, name) for name in SM90_LIBRARIES)
+    sass, sass_bwd, sass_bwd_tf32, sass_fwd_tf32 = (sm90_sass(build, name)
+                                                    for name in SM90_LIBRARIES)
     d40_blocks, d40_warps = d40_occupancy()
     print(f"K1/K3 d = 40 kernel: {d40_warps} warps a block, {d40_blocks} "
           "blocks per SM")
@@ -1844,23 +1868,29 @@ def main() -> int:
                            "after the fold in f32 writing bf16 (fold_kernel<bf16>)",
                      note="as fused_edit, with bf16 q, k, v, output and folded "
                           "values; sdpa_yardstick_ms is SDPA in bf16"),
-        kernel_entry("flash_attn_d64", "p2p_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_attn_d64", "p2p_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                      "p2p_tpu/models/nn.py:330", dims21["K1 f32 d=64"], k1_d64,
-                     units="tensor cores, 3xTF32 (flash_d64_kernel)",
+                     units=F32_D64_UNITS + " (flash_fwd_tf32_sm90_kernel)",
+                     split_launches={"sd21": c21["flash_split"],
+                                     "sd21_inversion": sd21_inv["f32"]["launches"]["flash_split"]},
                      note="K1 at SD-2.1's head dim 64 (wrapper flash_attention); "
-                          "launches from the sd21 f32 edit; library_ms is SDPA in f32"),
+                          "launches from the sd21 f32 edit; each call also launches "
+                          "flash_split_kv_tf32_kernel (split_launches, K1's and K3's), "
+                          "and its ms includes it; library_ms is SDPA in f32",
+                     sass=sass_fwd_tf32, ptxas=sm90_ptxas.get("flash_fwd_tf32_sm90_kernel")),
         kernel_entry("flash_attn_d64_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:330", dims21_16["K1 bf16 d=64"], k1_d64_bf16,
                      units="tensor cores, bf16: wgmma (m64n128k16 Q K^T, m64n64k16 P V "
                            "with P from registers) fed by TMA (flash_fwd_sm90_kernel<64>)",
                      note="launches from the sd21 bf16 edit; library_ms is SDPA in bf16",
                      sass=sass, ptxas=sm90_ptxas.get("flash_fwd_sm90_kernel<64>")),
-        kernel_entry("flash_attn_residuals_d64", "p2p_tpu_torch/csrc/flash_attn.cu",
+        kernel_entry("flash_attn_residuals_d64", "p2p_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                      "p2p_tpu/models/nn.py:343", dims_inv21["K3 f32 d=64"], k34_d64["K3"],
-                     units="tensor cores, 3xTF32 (flash_d64_kernel writing m and l)",
+                     units=F32_D64_UNITS + " (flash_fwd_tf32_sm90_kernel writing m and l)",
                      note="K3 at d = 64, the SD-2.1 inversion's gradient sites (768-v "
                           "and 512-base shapes); launches from the sd21 f32 inversion; "
-                          "library_ms is SDPA forward in f32"),
+                          "ms includes the split pass; library_ms is SDPA forward in f32",
+                     sass=sass_fwd_tf32, ptxas=sm90_ptxas.get("flash_fwd_tf32_sm90_kernel")),
         kernel_entry("flash_attn_residuals_d64_bf16", "p2p_tpu_torch/csrc/flash_fwd_sm90.cu",
                      "p2p_tpu/models/nn.py:343", dims_inv21_16["K3 bf16 d=64"],
                      k34_d64_bf16["K3"],

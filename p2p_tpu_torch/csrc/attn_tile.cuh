@@ -165,8 +165,3 @@ struct OutTile {
 };
 
 }  // namespace p2p
-
-// The message of a CUDA error code, for the Python wrappers.
-extern "C" const char* p2p_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -40,10 +40,6 @@
 // eight warps share it; two 4-warp blocks an SM (64 query rows each) ran
 // slower.
 //
-// flash_d64_kernel (d = 64, K1 and K3 at SD-2.1's self sites), the d = 40
-// design at d = 64 in 3xTF32, with Q split once into shared memory instead of
-// registers (see the kernel).
-//
 // flash_fwd_kernel (d = 80, 160; no path runs them), f32 on the CUDA
 // cores: one block owns BQ query rows of one (batch, head) and streams K
 // and V through one shared buffer, BK rows at a time; register tiles of
@@ -71,9 +67,12 @@
 // order. The wrapper (p2p_tpu_torch/kernels/flash.py: key_splits) picks
 // the split and allocates the partials.
 //
-// K1 and K3 in bf16 are not here: they run on wgmma and TMA in
-// flash_fwd_sm90.cu, at d = 40 and 64 (flash_fwd_sm90_kernel<DH>) and at d =
-// 512 (flash_d512_sm90_kernel).
+// K1 and K3 in f32 at d = 64 (SD-2.1's self sites) are not here: they run
+// in 3xTF32 on tf32 wgmma and TMA in flash_fwd_tf32_sm90.cu (library
+// flash_fwd_tf32_sm90, entry p2p_flash_attn_fwd_f32_sm90). K1 and K3 in bf16
+// are not here either: they run on wgmma and TMA in flash_fwd_sm90.cu, at
+// d = 40 and 64 (flash_fwd_sm90_kernel<DH>) and at d = 512
+// (flash_d512_sm90_kernel).
 //
 // No kernel here uses atomics: two launches give the same bits.
 #include "attn_tile.cuh"
@@ -413,231 +412,6 @@ int launch_d40(const float* q, const float* k, const float* v, float* o, float* 
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- d = 64
-
-namespace d64 {
-constexpr int D = 64;
-constexpr int NW = 8;                 // warps a block, 16 query rows each
-constexpr int NT = NW * 32;
-constexpr int BQ = NW * 16;           // query rows per block
-constexpr int BK = 64;                // keys per landed tile = one softmax step
-constexpr int KS = D / 8;             // k-steps of S = Q K^T; n-tiles of O
-constexpr int NTK = BK / 8;           // n-tiles of S; k-steps of O += P V
-constexpr int LDK = D;                // landed K tile: row stride
-constexpr int LDV = D + 4;            // landed V tile: 68, column reads conflict-free
-constexpr int LDX = 2 * D + 16;       // split Q and K, row-major: 144 (ld % 32 == 16)
-constexpr int LDVX = 2 * BK;          // split V^T, dim-major: 128, chunks swizzled
-constexpr size_t SMEM =
-    sizeof(float) * (BK * LDK + BK * LDV + (BQ + BK) * LDX + D * LDVX);
-static_assert(SMEM <= 232448, "d = 64 tile exceeds shared memory");
-
-// Split the landed K and V tiles once for every warp, as d40::split_kv does
-// (K row-major into pairs, V transposed with the half-swap swizzle).
-__device__ __forceinline__ void split_kv(const float* Kr, const float* Vr,
-                                         float* Kx, float* Vx) {
-  constexpr int P = D / 2;  // pairs a key
-  for (int i = threadIdx.x; i < BK * P; i += NT) {
-    const int n = i / P, c = i % P;
-    const float2 x = *reinterpret_cast<const float2*>(Kr + n * LDK + 2 * c);
-    *reinterpret_cast<uint4*>(Kx + n * LDX + 4 * c) = split_pair(x.x, x.y);
-  }
-  for (int i = threadIdx.x; i < BK / 2 * D; i += NT) {
-    const int lane = i & 31, u = i >> 5;
-    const int j = (u % (BK / 8)) * 4 + (lane & 3);
-    const int d = (u / (BK / 8)) * 8 + (lane >> 2);
-    *reinterpret_cast<uint4*>(Vx + d * LDVX + 4 * d40::vx_chunk(d, j)) =
-        split_pair(Vr[2 * j * LDV + d], Vr[(2 * j + 1) * LDV + d]);
-  }
-}
-}  // namespace d64
-
-// flash_d64_kernel (d = 64: K1 at SD-2.1's self sites, (4, 5, 9216, 64),
-// (4, 10, 2304, 64) and (4, 5, 4096, 64); K3 with m and l), flash_d40_kernel's
-// design at d = 64, on the tensor cores in 3xTF32. Bound: 3 * 4*S^2*d flops
-// per head at 495 TFLOP/s (2.64 ms at (4, 5, 9216, 64)). Q's split A
-// fragments would take 64 registers a thread beside the 32 of O, the 32 of
-// S and the B fragments, so Q is split once into shared memory in the
-// layout of the split K tile (a thread reads the A fragment of a k-step as
-// two conflict-free 16-byte loads) instead of being held in registers. The
-// landed tile is one 64-key online-softmax step: 173 KB of shared memory,
-// one 8-warp block an SM. grid (query tiles of BQ rows, bh), NT threads;
-// scale2 = scale * log2(e).
-__global__ void __launch_bounds__(d64::NT, 1)
-flash_d64_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ m_out, float* __restrict__ l_out, int sq,
-                 int sk, float scale2) {
-  using namespace d64;
-  extern __shared__ float smem[];
-  float* Kr = smem;                 // the landed tile, as copied
-  float* Vr = Kr + BK * LDK;
-  float* Kx = Vr + BK * LDV;        // the split tile the warps read
-  float* Qx = Kx + BK * LDX;        // Q * scale2, split once
-  float* Vx = Qx + BQ * LDX;
-
-  const int bh = blockIdx.y;
-  const float* kb = k + (size_t)bh * sk * D;
-  const float* vb = v + (size_t)bh * sk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int r0 = q0 + warp * 16;
-
-  // The first tile's copy is in flight while Q is split.
-  cp_async_rows<D, D, LDK, BK, NT>(Kr, kb, 0, sk);
-  cp_async_rows<D, D, LDV, BK, NT>(Vr, vb, 0, sk);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < BQ * D / 2; i += NT) {
-    const int r = i / (D / 2), c = i % (D / 2);
-    const float2 x = q0 + r < sq ? *reinterpret_cast<const float2*>(
-                                       q + ((size_t)bh * sq + q0 + r) * D + 2 * c)
-                                 : make_float2(0.f, 0.f);
-    *reinterpret_cast<uint4*>(Qx + r * LDX + 4 * c) =
-        split_pair(x.x * scale2, x.y * scale2);
-  }
-  const float* Qw = Qx + warp * 16 * LDX;
-
-  float m2[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
-  float acc[KS][4];
-#pragma unroll
-  for (int n = 0; n < KS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int nk = (sk + BK - 1) / BK;
-  for (int it = 0; it < nk; ++it) {
-    const int key0 = it * BK;
-    cp_async_wait<0>();
-    __syncthreads();  // tile it (and Q) ready; every warp is done with tile it - 1
-    split_kv(Kr, Vr, Kx, Vx);
-    __syncthreads();  // split tile ready; the landing buffers are free
-    if (it + 1 < nk) {
-      cp_async_rows<D, D, LDK, BK, NT>(Kr, kb, key0 + BK, sk);
-      cp_async_rows<D, D, LDV, BK, NT>(Vr, vb, key0 + BK, sk);
-    }
-    cp_async_commit();
-
-    // s = (Q scale2) K^T over the tile's keys, in a fresh accumulator. The A
-    // fragment of k-step ks: rows g and g + 8 of the warp's split Q, k = t
-    // <-> dim 8 ks + 2t, k = t + 4 <-> dim 8 ks + 2t + 1.
-    float s[NTK][4];
-#pragma unroll
-    for (int n = 0; n < NTK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      FragA a;
-      {
-        const uint4 x0 = *reinterpret_cast<const uint4*>(Qw + g * LDX + ks * 16 + 4 * t);
-        const uint4 x1 =
-            *reinterpret_cast<const uint4*>(Qw + (g + 8) * LDX + ks * 16 + 4 * t);
-        a.x[HI][0] = x0.x, a.x[HI][1] = x1.x, a.x[HI][2] = x0.y, a.x[HI][3] = x1.y;
-        a.x[LO][0] = x0.z, a.x[LO][1] = x1.z, a.x[LO][2] = x0.w, a.x[LO][3] = x1.w;
-      }
-      FragB b[NTK];
-#pragma unroll
-      for (int n = 0; n < NTK; ++n)
-        load_b_pair(b[n], Kx + (n * 8 + g) * LDX + ks * 16 + 4 * t);
-      mma_3xtf32([&](int ta, int tb) {
-#pragma unroll
-        for (int n = 0; n < NTK; ++n) mma_tf32(s[n], a.x[ta], b[n].x[tb]);
-      });
-    }
-    if (key0 + BK > sk) {  // keys past sk score -inf
-#pragma unroll
-      for (int n = 0; n < NTK; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (key0 + n * 8 + 2 * t + (e & 1) >= sk) s[n][e] = -INFINITY;
-    }
-
-    // Online softmax in registers, base 2: p = exp2(s - m2).
-    float mx[2] = {m2[0], m2[1]};
-#pragma unroll
-    for (int n = 0; n < NTK; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float ps[2] = {0.f, 0.f}, c[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      c[h] = exp2_ftz(m2[h] - mx[h]);  // 0 on the first tile
-      m2[h] = mx[h];
-    }
-#pragma unroll
-    for (int n = 0; n < NTK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2_ftz(s[n][e] - m2[e >> 1]);  // -inf gives 0
-        ps[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) lsum[h] = lsum[h] * c[h] + ps[h];
-
-    // O = O c + P V, P's C fragments as A fragments (a_from_c), the tile's
-    // product in a fresh accumulator added in f32.
-    float tile[KS][4];
-#pragma unroll
-    for (int n = 0; n < KS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tile[n][e] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < NTK; ++kt) {
-      FragA a;
-      a_from_c(a, s[kt]);
-      FragB b[KS];
-#pragma unroll
-      for (int n = 0; n < KS; ++n) {
-        const int d = n * 8 + g;
-        load_b_pair(b[n], Vx + d * LDVX + 4 * d40::vx_chunk(d, kt * 4 + t));
-      }
-      mma_3xtf32([&](int ta, int tb) {
-#pragma unroll
-        for (int n = 0; n < KS; ++n) mma_tf32(tile[n], a.x[ta], b[n].x[tb]);
-      });
-    }
-#pragma unroll
-    for (int n = 0; n < KS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], c[e >> 1], tile[n][e]);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
-    lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
-  }
-  float* ob = o + (size_t)bh * sq * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    if (r >= sq) continue;
-    const float inv = 1.f / lsum[h];
-#pragma unroll
-    for (int n = 0; n < KS; ++n)
-      *reinterpret_cast<float2*>(ob + (size_t)r * D + n * 8 + 2 * t) =
-          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
-    if (m_out != nullptr && t == 0) {
-      m_out[(size_t)bh * sq + r] = m2[h] * d40::LN2;
-      l_out[(size_t)bh * sq + r] = lsum[h];
-    }
-  }
-}
-
-int launch_d64(const float* q, const float* k, const float* v, float* o, float* m,
-               float* l, int bh, int sq, int sk, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_d64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)d64::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sq + d64::BQ - 1) / d64::BQ, bh);
-  flash_d64_kernel<<<grid, d64::NT, d64::SMEM, stream>>>(q, k, v, o, m, l, sq, sk,
-                                                         scale * d40::LOG2E);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------- d = 512
 
 namespace d512 {
@@ -923,6 +697,10 @@ int launch_d512(const float* q, const float* k, const float* v, float* o,
 
 }  // namespace
 
+// What p2p_flash_attn_fwd returns at d = 64 (not a cudaError_t): f32 at d =
+// 64 runs in library flash_fwd_tf32_sm90 (flash_fwd_tf32_sm90.cu).
+constexpr int kD64Elsewhere = 1064;
+
 // q: (bh, sq, d), k and v: (bh, sk, d), o: (bh, sq, d), all contiguous f32.
 // m and l: (bh, sq) f32, both null (K1) or both non-null (K3: the row max
 // and row sum are written too). nsplit: key splits, 1 unless d = 512; with
@@ -940,7 +718,7 @@ extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v
     case 40:
       return launch_d40(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 64:
-      return launch_d64(q, k, v, o, m, l, bh, sq, sk, scale, s);
+      return kD64Elsewhere;
     case 80:
       return launch<80, 64, 64, 16, 8>(q, k, v, o, m, l, bh, sq, sk, scale, s);
     case 160:
@@ -948,6 +726,13 @@ extern "C" int p2p_flash_attn_fwd(const float* q, const float* k, const float* v
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The message of an error code of this library, for the Python wrappers.
+extern "C" const char* p2p_cuda_error_string(int code) {
+  if (code == kD64Elsewhere)
+    return "f32 at d = 64 runs in library flash_fwd_tf32_sm90 (p2p_flash_attn_fwd_f32_sm90)";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // Blocks of the d = 40 kernel resident on one SM (its occupancy), and its

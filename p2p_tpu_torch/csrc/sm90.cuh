@@ -1,7 +1,7 @@
 // Hopper's own instructions, shared by the kernels written on them
-// (flash_fwd_sm90.cu: K1/K3 in bf16 at d = 64 and 512; flash_bwd_sm90.cu: K4's two
-// passes in bf16 at d = 40 and 64; flash_bwd_tf32_sm90.cu: K4's two passes
-// in f32 at d = 64): mbarriers, TMA loads of bf16 rows into 64-wide boxes
+// (flash_fwd_sm90.cu: K1/K3 in bf16 at d = 40, 64 and 512; flash_fwd_tf32_sm90.cu:
+// K1/K3 in f32 at d = 64; flash_bwd_sm90.cu: K4's two passes in bf16 at d = 40
+// and 64; flash_bwd_tf32_sm90.cu: K4's two passes in f32 at d = 64): mbarriers, TMA loads of bf16 rows into 64-wide boxes
 // and of f32 rows into 32-wide ones through 3-D tensor maps with the
 // 128-byte swizzle, wgmma descriptors, the wgmma forms those kernels issue
 // and the loads of register A fragments, and the host-side encoders of the
@@ -267,14 +267,15 @@ __device__ __forceinline__ void wgmma_rs_n128_kb(float (&d)[64], const uint32_t*
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
-// The tf32 forms (flash_bwd_tf32_sm90.cu, K4 in f32). wgmma has no
-// transposed form for tf32: both operands in shared memory are K-major. A
-// k8 step is 32 bytes of a 128-byte swizzle row, as a bf16 k16 step is, so
-// the descriptors above serve unchanged; a row of 64 f32 spans two swizzle
-// rows, which lie in two separate 32-column tiles. The register A fragment
-// of a k8 step (thread tw of the warpgroup, w = tw / 32, g = lane / 4,
-// t = lane % 4): a0 (16 w + g, t), a1 (16 w + g + 8, t), a2 (16 w + g,
-// t + 4), a3 (16 w + g + 8, t + 4); the accumulator layout is the one above.
+// The tf32 forms (flash_fwd_tf32_sm90.cu and flash_bwd_tf32_sm90.cu, K1/K3
+// and K4 in f32). wgmma has no transposed form for tf32: both operands in
+// shared memory are K-major. A k8 step is 32 bytes of a 128-byte swizzle
+// row, as a bf16 k16 step is, so the descriptors above serve unchanged; a
+// row of 64 f32 spans two swizzle rows, which lie in two separate 32-column
+// tiles. The register A fragment of a k8 step (thread tw of the warpgroup,
+// w = tw / 32, g = lane / 4, t = lane % 4): a0 (16 w + g, t), a1 (16 w + g
+// + 8, t), a2 (16 w + g, t + 4), a3 (16 w + g + 8, t + 4); the accumulator
+// layout is the one above.
 
 // d (64 x 32, f32) = [d +] A (64 x 8) B (8 x 32), tf32, A and B K-major in
 // shared memory.

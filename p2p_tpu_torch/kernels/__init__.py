@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels and their dispatch.
 
 - K1 :func:`flash.flash_attention` — flash attention forward
-  (``csrc/flash_attn.cu`` in f32, ``csrc/flash_fwd_sm90.cu`` in bf16).
+  (``csrc/flash_attn.cu`` in f32 at d = 40 and 512,
+  ``csrc/flash_fwd_tf32_sm90.cu`` in f32 at d = 64, ``csrc/flash_fwd_sm90.cu``
+  in bf16).
 - K3 :func:`flash.flash_attention_residuals` — the same kernel, also
   writing each row's softmax max and sum.
 - K4 :func:`flash_bwd.flash_attention_bwd` — flash attention backward, a
@@ -23,7 +25,9 @@ launches in ``<wrapper>.launches`` (K1's, K3's and K4's passes' by dtype
 and head dim, in ``<wrapper>.by_head_dim``, :func:`head_dim_launch_counts`); K1's and
 K3's wrappers also count the merge kernel their d = 512 calls launch when
 they split the keys, in ``<wrapper>.merge_launches``
-(:func:`merge_launches`), and K2's wrapper the fold kernel it launches
+(:func:`merge_launches`), and the split pass their f32 d = 64 calls launch
+before the forward, in ``<wrapper>.split_launches``
+(:func:`split_launches`), and K2's wrapper the fold kernel it launches
 before the main kernel, in ``edit_attention.fold_launches``
 (:func:`fold_launches`). Every kernel also takes bf16 operands (K1 and K3
 at d = 40, 64 and 512, K4 at d = 40 and 64); those launches count apart
@@ -79,6 +83,12 @@ def merge_launches() -> int:
     return flash_attention.merge_launches + flash_attention_residuals.merge_launches
 
 
+def split_launches() -> int:
+    """Launches of the f32 d = 64 forward's split pass (one per K1 or K3
+    call in f32 at d = 64), by K1's and K3's wrappers."""
+    return flash_attention.split_launches + flash_attention_residuals.split_launches
+
+
 def fold_launches() -> int:
     """Launches of K2's fold kernel, one per K2 launch."""
     return edit_attention.fold_launches
@@ -114,6 +124,8 @@ def reset_launch_counts() -> None:
     edit_attention.bf16_launches = 0
     edit_attention.bf16_fold_launches = 0
     flash_attention_residuals.merge_launches = 0
+    flash_attention.split_launches = 0
+    flash_attention_residuals.split_launches = 0
     flash_attention.by_head_dim.clear()
     flash_attention_residuals.by_head_dim.clear()
     flash_attention_bwd_dkv.by_head_dim.clear()
@@ -136,6 +148,6 @@ __all__ = [
     "edit_attention", "edit_attention_plain",
     "fused_site_attention", "bf16_launch_counts", "fold_launches",
     "head_dim_launch_counts",
-    "launch_counts", "merge_launches",
+    "launch_counts", "merge_launches", "split_launches",
     "reset_launch_counts", "window_sum", "window_sum_plain",
 ]

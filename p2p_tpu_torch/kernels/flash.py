@@ -6,14 +6,19 @@ K1 (:func:`flash_attention`) replaces the JAX package's
 kernel behind ``fused_attention``); K3 (:func:`flash_attention_residuals`)
 replaces ``flash_attention_residuals``, the same Pallas kernel with
 ``save_residuals=True`` — also its forward rule under differentiation. Both
-launch the CUDA kernels of ``csrc/flash_attn.cu``: non-causal, unmasked
-``softmax(q·kᵀ·scale)·v`` in f32, blockwise with an online softmax, so the
-(S, S) scores never exist in device memory; K3 also writes each row's max
-``m`` and sum ``l`` of ``exp(s − m)``. At the paths' head dims, 40, 64 (the
-SD-2.1 U-Net) and 512, the kernels run on the tensor cores in 3xTF32 (f32
-accuracy; :mod:`.tf32` emulates them, :func:`.tf32.flash_d40` the d = 40
-and d = 64 kernels step by step); d = 80 and 160, which no path runs, use
-an f32 kernel on the CUDA cores. A d = 512 kernel fills an SM with one block
+launch CUDA kernels: non-causal, unmasked ``softmax(q·kᵀ·scale)·v`` in f32,
+blockwise with an online softmax, so the (S, S) scores never exist in
+device memory; K3 also writes each row's max ``m`` and sum ``l`` of
+``exp(s − m)``. At the paths' head dims, 40, 64 (the SD-2.1 U-Net) and 512,
+the kernels run on the tensor cores in 3xTF32 (f32 accuracy; :mod:`.tf32`
+emulates them, :func:`.tf32.flash_d40` the d = 40 and d = 64 kernels step
+by step): at d = 40 and 512 in ``csrc/flash_attn.cu`` (``mma.sync``), at
+d = 64 on Hopper's tf32 ``wgmma`` and TMA in ``csrc/flash_fwd_tf32_sm90.cu``
+(a library of its own, ``flash_fwd_tf32_sm90_kernel``, 64 keys a tile,
+after ``flash_split_kv_tf32_kernel`` has split K and V once into scratch the
+wrapper allocates: :func:`f32_d64_scratch`);
+d = 80 and 160, which no path runs, use an f32 kernel on the CUDA cores of
+``csrc/flash_attn.cu``. A d = 512 kernel fills an SM with one block
 of 64 query rows, so it may split the keys among several blocks
 (:func:`key_splits`: when the query tiles leave SMs idle, too few for one
 round or a short last round); a second kernel (``csrc/flash_merge.cuh``)
@@ -43,8 +48,9 @@ P).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each wrapper counts its launches by dtype
-and head dim (one kernel each) in ``.by_head_dim``, and the merges of its
-split calls in ``.merge_launches``.
+and head dim (one kernel each) in ``.by_head_dim``, the merges of its
+split calls in ``.merge_launches``, and the split passes of its f32 d = 64
+calls (one a call) in ``.split_launches``.
 """
 
 from __future__ import annotations
@@ -166,10 +172,11 @@ def merge_partials(outs, ls, ms):
     return out / l[..., None], l, m
 
 
-#: The library of each forward entry: bf16 runs on Hopper's wgmma and TMA
-#: in a library of its own.
+#: The library of each forward entry: bf16, and f32 at d = 64, run on
+#: Hopper's wgmma and TMA in libraries of their own.
 ENTRIES = {"p2p_flash_attn_fwd": "flash_attn",
-           "p2p_flash_attn_fwd_bf16_sm90": "flash_fwd_sm90"}
+           "p2p_flash_attn_fwd_bf16_sm90": "flash_fwd_sm90",
+           "p2p_flash_attn_fwd_f32_sm90": "flash_fwd_tf32_sm90"}
 _FORWARD: dict = {}
 
 
@@ -187,9 +194,21 @@ def forward_entry(entry: str):
     return found
 
 
+def f32_d64_scratch(lib: ctypes.CDLL, bh: int, sk: int, device) -> torch.Tensor:
+    """f32 scratch on ``device`` for the f32 d = 64 entry over ``bh`` heads
+    of ``sk`` keys (``lib``: its library): the split K and V^T its split
+    pass writes, as many values as the library asks."""
+    size = lib.p2p_flash_attn_fwd_f32_sm90_scratch
+    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    size.restype = ctypes.c_longlong
+    return torch.empty(size(bh, sk), dtype=torch.float32, device=device)
+
+
 def entry_for(dtype: torch.dtype, d: int) -> str:
     """The forward C entry that runs ``dtype`` at head dim ``d``."""
-    return "p2p_flash_attn_fwd_bf16_sm90" if dtype == torch.bfloat16 else "p2p_flash_attn_fwd"
+    if dtype == torch.bfloat16:
+        return "p2p_flash_attn_fwd_bf16_sm90"
+    return "p2p_flash_attn_fwd_f32_sm90" if d == 64 else "p2p_flash_attn_fwd"
 
 
 def _lib() -> ctypes.CDLL:
@@ -232,9 +251,10 @@ def check_operands(what: str, tensors, head_dims, dtype=torch.float32) -> None:
 def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: float, residuals: bool):
     """One launch of the forward entry for q's dtype and head dim
-    (:func:`entry_for`): ``(out, l, m, merged)``, with
-    ``l`` and ``m`` None unless ``residuals``, and ``merged`` whether the
-    call split the keys and so also launched the merge kernel."""
+    (:func:`entry_for`): ``(out, l, m, merged, split)``, with
+    ``l`` and ``m`` None unless ``residuals``, ``merged`` whether the
+    call split the keys and so also launched the merge kernel, and
+    ``split`` whether it launched the f32 d = 64 split pass first."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -255,6 +275,9 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
     nsplit, part = 1, None
+    split = entry == "p2p_flash_attn_fwd_f32_sm90"
+    if split:
+        part = f32_d64_scratch(lib, b * h, sk, q.device)
     if d == 512:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         nsplit = d512_splits(q.dtype, b * h, sq, sk, sms)
@@ -267,7 +290,7 @@ def _launch(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if part is None else part.data_ptr(), nsplit,
         b * h, sq, sk, d, float(scale), stream)
     build.check(lib, status, entry)
-    return out, l, m, nsplit > 1
+    return out, l, m, nsplit > 1, split
 
 
 def _count_head_dim(wrapper, q: torch.Tensor) -> None:
@@ -284,9 +307,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(B, H, Sk, D)``, contiguous, f32 or (at d = 40, 64 and 512) bf16."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    out, _, _, merged = _launch("flash_attention", q, k, v, scale,
-                                residuals=False)
+    out, _, _, merged, split = _launch("flash_attention", q, k, v, scale,
+                                       residuals=False)
     flash_attention.merge_launches += merged
+    flash_attention.split_launches += split
     _count_head_dim(flash_attention, q)
     return out
 
@@ -299,14 +323,17 @@ def flash_attention_residuals(q: torch.Tensor, k: torch.Tensor,
     40, 64 and 512) bf16."""
     if q.device.type == "cpu":
         return flash_attention_residuals_plain(q, k, v, scale)
-    out, l, m, merged = _launch("flash_attention_residuals", q, k, v, scale,
-                                residuals=True)
+    out, l, m, merged, split = _launch("flash_attention_residuals", q, k, v, scale,
+                                       residuals=True)
     flash_attention_residuals.merge_launches += merged
+    flash_attention_residuals.split_launches += split
     _count_head_dim(flash_attention_residuals, q)
     return out, l, m
 
 
 flash_attention.merge_launches = 0
 flash_attention_residuals.merge_launches = 0
+flash_attention.split_launches = 0
+flash_attention_residuals.split_launches = 0
 flash_attention.by_head_dim = {}
 flash_attention_residuals.by_head_dim = {}

@@ -1,6 +1,7 @@
 """Plain emulation of the tensor-core arithmetic of the port's 3xTF32
-kernels (``csrc/mma_tf32.cuh``: K1 and K3 at d = 40, 64 and 512, both
-passes of K4 at d = 40, K2's main kernel; K4 at d = 64 on ``wgmma`` in
+kernels (``csrc/mma_tf32.cuh``: K1 and K3 at d = 40 and 512, both passes
+of K4 at d = 40, K2's main kernel; on ``wgmma`` K1 and K3 at d = 64 in
+``csrc/flash_fwd_tf32_sm90.cu`` and K4 at d = 64 in
 ``csrc/flash_bwd_tf32_sm90.cu``).
 
 A TF32 operand keeps the sign, the 8 exponent bits and the top 10 of f32's
@@ -11,7 +12,8 @@ hi·hi`` with an f32 accumulator ("3xTF32"); a product of two TF32 values is
 exact in f32, so only the accumulation rounds. One TF32 product alone
 ("1xTF32") keeps about three decimal digits. :func:`flash_d40` follows the
 d = 40 kernel (``flash_d40_kernel``) step by step, and at d = 64 the
-d = 64 one (``flash_d64_kernel``, whose landed tile is one 64-key step):
+d = 64 one (``flash_fwd_tf32_sm90_kernel``, whose key tile is one 64-key
+step):
 the online softmax in base 2, each step's products in a fresh accumulator
 added in f32, and the residuals converted back to natural units. :func:`fused_edit_folded`
 follows K2 (``csrc/fused_edit.cu``): the fold in f32, then one or two such
@@ -78,14 +80,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return mm(p, v) / p.sum(dim=-1, keepdim=True)
 
 
-#: Keys per online-softmax step of the d = 40 and d = 64 kernels.
+#: Keys per online-softmax step of the d = 40 and d = 64 kernels (the d = 64
+#: kernel's key tile, ``BN`` in ``csrc/flash_fwd_tf32_sm90.cu``).
 D40_STEP = 64
 
 
 def flash_d40(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
               mm=mm_3xtf32, step: int = D40_STEP):
     """``(out, l, m)`` of softmax attention as ``flash_d40_kernel`` (and,
-    at d = 64, ``flash_d64_kernel``) computes them: q scaled by
+    at d = 64, ``flash_fwd_tf32_sm90_kernel``) computes them: q scaled by
     ``scale·log2(e)`` (in f32, as the kernel scales its Q fragments), then per ``step`` keys the scores ``s`` by ``mm``, the
     running max ``m2 = max(m2, max s)`` and ``p = 2^(s − m2)``, the sum and
     output rescaled by ``2^(m2_old − m2)`` and ``p·v`` by ``mm`` added to

@@ -68,7 +68,8 @@ PROFILE_STEPS = 3    # traced steps
 
 # Kernel-name fragments of each class, first match wins.
 CLASSES = (
-    ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_d64_kernel", "flash_fwd_sm90_kernel",
+    ("K1/K3 flash_attn", ("flash_d40_kernel", "flash_fwd_tf32_sm90_kernel",
+                          "flash_split_kv_tf32_kernel", "flash_fwd_sm90_kernel",
                           "flash_fwd_kernel",
                           "flash_d512_kernel", "flash_d512_sm90_kernel",
                           "flash_merge_kernel")),

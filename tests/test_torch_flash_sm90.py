@@ -95,7 +95,9 @@ def test_k1_k3_d64_bf16_emulation_ragged_matches_plain(sq, sk):
                  id="dtype1-40-p2p_flash_attn_fwd_bf16-flash_attn"),
     pytest.param(TB, 512, "p2p_flash_attn_fwd_bf16_sm90", "flash_fwd_sm90",
                  id="dtype2-512-p2p_flash_attn_fwd_bf16-flash_attn"),
-    (torch.float32, 64, "p2p_flash_attn_fwd", "flash_attn"),
+    # f32 at d = 64 moved to tf32 wgmma and TMA; the case keeps its id.
+    pytest.param(torch.float32, 64, "p2p_flash_attn_fwd_f32_sm90", "flash_fwd_tf32_sm90",
+                 id="dtype3-64-p2p_flash_attn_fwd-flash_attn"),
 ])
 def test_forward_entry_by_dtype_and_head_dim(dtype, d, entry, library):
     assert flash.entry_for(dtype, d) == entry

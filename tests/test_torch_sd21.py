@@ -92,7 +92,7 @@ def test_k1_d64_f32_plain_and_emulation_match_pallas():
         want = np.asarray(jnn.flash_attention_tpu(jq, jk, jv, SCALE, 256))
     plain = K.flash_attention_plain(q, k, v, SCALE)
     assert np.abs(plain.numpy() - want).max() <= 2e-5
-    got = tf32.flash_d40(q, k, v, SCALE)    # flash_d64_kernel's steps
+    got = tf32.flash_d40(q, k, v, SCALE)    # flash_fwd_tf32_sm90_kernel's steps
     ref = K.flash_attention_residuals_plain(q, k, v, SCALE)
     for name, g, r in zip(("out", "l", "m"), got, ref):
         assert _rel(g, r) <= 2e-6, (name, _rel(g, r))

@@ -44,6 +44,20 @@ split (the other's where its ``kernels/flash.py`` has ``d512_splits`` the
 same as this one's, else its rule of splitting only below one round of
 blocks), timed in turns (other, this, this, other), merge included, beside
 SDPA in the same dtype.
+
+Also f32 at d = 64, SD-2.1's head: K1 at (4, 5, 9216, 64), (4, 10, 2304,
+64) and (4, 5, 4096, 64) and K3 at (1, 5, 9216, 64), (1, 10, 2304, 64) and
+(1, 5, 4096, 64), this checkout's ``p2p_flash_attn_fwd_f32_sm90``
+(``csrc/flash_fwd_tf32_sm90.cu``, 3xTF32 on tf32 wgmma) against the other
+checkout's f32 d = 64 kernel (its ``p2p_flash_attn_fwd_f32_sm90`` where it
+has ``flash_fwd_tf32_sm90.cu``, then bit for bit, else its
+``flash_d64_kernel`` behind ``p2p_flash_attn_fwd``), each output within
+``TC_TOL`` of the other's and of the plain version (``m`` and ``l``
+relative), timed in turns (other, this, this, other) beside SDPA in f32
+and the 3xTF32 bound; then this checkout's K3 at (1, 10, 2304, 64), whose
+180 blocks of 128 queries leave a short last round on 132 SMs, beside (1,
+22, 2304, 64), 396 blocks, three full rounds, in turns: what the short
+round costs.
 """
 
 import ctypes
@@ -224,6 +238,116 @@ def d512_part(checkout: str, sms: int, gen, stream, bad: list) -> list:
     return rows
 
 
+F32_D64 = (((4, 5, 9216, 64), False), ((4, 10, 2304, 64), False), ((4, 5, 4096, 64), False),
+           ((1, 5, 9216, 64), True), ((1, 10, 2304, 64), True), ((1, 5, 4096, 64), True))
+#: K3 shapes of one short last round of blocks and of three full rounds.
+F32_ROUNDS = ((1, 10, 2304, 64), (1, 22, 2304, 64))
+
+
+def f32_d64_part(checkout: str, sms: int, gen, stream, bad: list) -> dict:
+    """The f32 d = 64 comparison against ``checkout`` (module docstring)."""
+    other_sm90 = os.path.exists(os.path.join(checkout, "p2p_tpu_torch/csrc/"
+                                                       "flash_fwd_tf32_sm90.cu"))
+    entries = {"other": (other_entry(checkout, "flash_fwd_tf32_sm90",
+                                     "p2p_flash_attn_fwd_f32_sm90") if other_sm90
+                         else other_entry(checkout, "flash_attn", "p2p_flash_attn_fwd")),
+               "this": flash.forward_entry(flash.entry_for(torch.float32, 64))}
+
+    def buffers(shape, k3):
+        b, h, s, _ = shape
+        ml = [torch.empty((b, h, s), device="cuda") for _ in range(2)] if k3 else [None] * 2
+        return (torch.empty(shape, device="cuda"), *ml)
+
+    # The scratch of each side's entry where its library asks for some (the
+    # split K and V^T), for the largest of the shapes.
+    shapes = [shape for shape, _ in F32_D64] + list(F32_ROUNDS)
+    scratch = {side: (max((flash.f32_d64_scratch(lib, b * h, s, "cuda")
+                           for b, h, s, _ in shapes), key=torch.numel)
+                      if hasattr(lib, "p2p_flash_attn_fwd_f32_sm90_scratch") else None)
+               for side, (lib, _) in entries.items()}
+
+    def call(side, q, k, v, o, m, l):
+        lib, fn = entries[side]
+        b, h, s, d = q.shape
+        part = scratch[side]
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+                    None if part is None else part.data_ptr(), 1, b * h, s, s, d, d ** -0.5,
+                    stream)
+        build.check(lib, status, f"{side} f32 d = 64 forward")
+
+    rows = []
+    for shape, k3 in F32_D64:
+        b, h, s, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        bufs = {side: buffers(shape, k3) for side in ("other", "this")}
+        for side in ("other", "this"):
+            call(side, q, k, v, *bufs[side])
+        again = buffers(shape, k3)
+        call("this", q, k, v, *again)
+        torch.cuda.synchronize()
+        tag = f"{'K3' if k3 else 'K1'} f32 {shape}"
+        p_o, p_l, p_m = K.flash_attention_residuals_plain(q, k, v, d ** -0.5)
+        checks = [("out", 0, p_o)] + ([("m", 1, p_m), ("l", 2, p_l)] if k3 else [])
+        errs = {}
+        for what, i, want in checks:
+            this, other = bufs["this"][i], bufs["other"][i]
+            for key, a, ref in (("this_vs_other", this, other), ("this_vs_plain", this, want),
+                                ("other_vs_plain", other, want)):
+                e = cs.max_err(torch, a, ref)
+                if what != "out":
+                    e /= ref.double().abs().max().item()
+                errs[f"{what} {key}"] = e
+                if e > cs.TC_TOL:
+                    bad.append(f"{tag} {what} {key}: {e:.3g} > {cs.TC_TOL}")
+            if not torch.equal(this, again[i]):
+                bad.append(f"{tag} {what}: two launches differ")
+            if other_sm90 and not torch.equal(this, other):
+                bad.append(f"{tag} {what}: not bit for bit the other tree's")
+        times = {"other": [], "this": []}
+        iters = 5 if b * h * s >= 20 * 4096 else 10
+        for side in ("other", "this", "this", "other"):
+            times[side].append(cs.cuda_ms(torch, lambda: call(side, q, k, v, *bufs[side]),
+                                          iters))
+        sdpa = cs.cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=d ** -0.5), iters)
+        this_ms, other_ms = sum(times["this"]) / 2, sum(times["other"]) / 2
+        blocks = -(-s // 128) * b * h
+        row = {"shape": list(shape), "k3": k3, "errors": errs, "bitwise_expected": other_sm90,
+               "other_ms": times["other"], "this_ms": times["this"], "sdpa_f32_ms": sdpa,
+               "this_over_other": this_ms / other_ms, "this_over_sdpa": this_ms / sdpa,
+               "blocks": blocks, "waves": blocks / sms,
+               **cs.bound(4.0 * b * h * s * s * d, 4 * 4 * q.numel() + (8 * b * h * s if k3 else 0),
+                          True)}
+        row["this_over_bound"] = this_ms / row["bound_ms"]
+        rows.append(row)
+        print(f"{tag}: other {times['other']} ms, this {times['this']} ms, sdpa f32 "
+              f"{sdpa:.4f} ms (this / other {row['this_over_other']:.3f}, this / sdpa "
+              f"{row['this_over_sdpa']:.3f}), bound {row['bound_ms']:.4f} ms "
+              f"({row['this_over_bound']:.2f}x), {blocks} blocks = {row['waves']:.2f} waves; " +
+              ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items()))
+    inputs = {shape: [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
+              for shape in F32_ROUNDS}
+    outs = {shape: buffers(shape, True) for shape in F32_ROUNDS}
+    times = {shape: [] for shape in F32_ROUNDS}
+    for shape in F32_ROUNDS + F32_ROUNDS[::-1]:
+        times[shape].append(cs.cuda_ms(torch, lambda: call("this", *inputs[shape], *outs[shape]),
+                                       20))
+    short, full = F32_ROUNDS
+    blocks = {shape: -(-shape[2] // 128) * shape[0] * shape[1] for shape in F32_ROUNDS}
+    ms = {shape: sum(t) / 2 for shape, t in times.items()}
+    # The short shape's time were its blocks to cost what a block of full rounds costs.
+    even = ms[full] * blocks[short] / blocks[full]
+    rounds = {"short": {"shape": list(short), "blocks": blocks[short], "ms": times[short]},
+              "full": {"shape": list(full), "blocks": blocks[full], "ms": times[full]},
+              "short_at_full_rounds_rate_ms": even, "short_round_cost": ms[short] / even - 1}
+    print(f"K3 f32 d=64 rounds: {short} {blocks[short]} blocks {times[short]} ms, {full} "
+          f"{blocks[full]} blocks {times[full]} ms; at the full rounds' rate a block the first "
+          f"would take {even:.4f} ms: the short last round costs "
+          f"{100 * rounds['short_round_cost']:.1f} %")
+    return {"rows": rows, "rounds": rounds}
+
+
 def main(argv) -> int:
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -322,6 +446,7 @@ def main(argv) -> int:
             print(f"K1 and K3 bf16 d={d}: out (and m, l) bitwise equal to the other "
                   f"checkout's sm90 kernel: {same[d]}")
     rows512 = d512_part(argv[1], sms, gen, stream, bad)
+    f32_d64 = f32_d64_part(argv[1], sms, gen, stream, bad)
 
     # The host's time a call: C entry against C entry, then wrapper against
     # wrapper (each checkout's in a process of its own) where the other
@@ -354,7 +479,7 @@ def main(argv) -> int:
           ", ".join(f"{n} {us:.2f}" for n, us in host.items()))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "k1_compare.json"), "w") as f:
-        json.dump({"card": card, "rows": rows, "d512_rows": rows512,
+        json.dump({"card": card, "rows": rows, "d512_rows": rows512, "f32_d64": f32_d64,
                    "d40_bitwise": same[40] if bitwise[40] else None,
                    "d64_bitwise": same[64] if bitwise[64] else None, "host_us": host,
                    "failures": bad}, f, indent=1)
