@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/H100 port: builds the CUDA kernels, holds each
 against its plain PyTorch version at every geometry its paths give it, and
-drives the SD-1.4 Replace edit, a null-text inversion and its replay edit,
-and the SD-2.1 768-v Replace edit, null-text inversion and replay, end to
-end through the package's entry points.
+drives the SD-1.4 Replace edit (under DDIM, PLMS and DPM-Solver++), a
+null-text inversion and its replay edit, the SD-2.1 768-v Replace edit,
+null-text inversion and replay, and the LDM-256 Replace edit, end to end
+through the package's entry points.
 
     python3 chip_smoke.py
 
@@ -120,7 +121,21 @@ Phases, each of which raises on failure:
    (drift within ``DRIFT_TOL``), the bf16 one in bf16 (drift held against
    its own f32 materialized replay as in phase 6), each with the null-text
    invariant; the 512-base config runs only its kernel geometries;
-9. the script's wall time, one ``{"kernels": [...]}`` line, then the device
+9. the main path's edit under the PLMS and DPM-Solver++ samplers (right
+   after phase 3, on its pipeline), in f32: PLMS makes 51 U-Net calls of 50
+   steps (its second timestep repeated), DPM 50, so exactly 5 K1 and 22 K2
+   (each with its fold) a call plus 1 K1 for the VAE, and the final latents
+   within ``DRIFT_TOL`` of the ``kernels=None`` run's (``multistep_path``);
+10. LDM-256 (``models/config.py:LDM256``: LDMBert, 32² latent, head dim
+   64, the VQ-f8 decode): K2 at every geometry of its Replace edit (4
+   cross sites, 3 self sites at steps 0 and 45) in both dtypes with phase
+   8's D = 64 geometries, then the edit (2 prompts, DDIM 50 steps, CFG 5.0)
+   from random weights of seed 0 in f32 and in bf16, the decode in f32:
+   exactly 27 K2 (each with its fold) a step and no K1, K3 or K4 (its
+   largest self site, 1024 positions, is under the flash threshold), the
+   f32 drift within ``DRIFT_TOL`` and the bf16 drift held as in phase 6
+   (``ldm_path``, after the SD-2.1 pipeline is freed);
+11. the script's wall time, one ``{"kernels": [...]}`` line, then the device
    line last.
 
 Exits non-zero, printing no result, when no CUDA card is visible or the
@@ -456,9 +471,9 @@ def k2_cases(torch, cfg=None):
     α = 1) and outside (step 45, α = 0) the injection window; and the replay
     edit's cross sites at P = 4096 (Replace with Reweight's equalizer). CFG
     batch 4 (one edit row), q/k/v drawn in order from one generator. With
-    ``cfg`` (an SD-2.1 config), its Replace edit's geometries instead: the
-    cross sites at every level and the self sites within ``self_max_pixels``
-    at steps 0 and 45, all at D = 64."""
+    ``cfg`` (an SD-2.1 or the LDM-256 config), its Replace edit's
+    geometries instead: the cross sites at every level and the self sites
+    within ``self_max_pixels`` at steps 0 and 45, all at D = 64."""
     from p2p_tpu_torch.controllers.factory import (
         attention_refine,
         attention_replace,
@@ -509,7 +524,7 @@ def k2_cases(torch, cfg=None):
 
 def k2_phases(torch, K, F, dtype=None, cfgs=(None,)):
     """K2 at its 13 main-path geometries (:func:`k2_cases`), or at each
-    SD-2.1 config's of ``cfgs``, each twice for bitwise-equal outputs,
+    SD-2.1 or LDM-256 config's of ``cfgs``, each twice for bitwise-equal outputs,
     within ``TC_TOL`` (f32) or ``BF16_TOL`` (q, k and v cast to ``dtype``
     bf16) of the plain output's largest magnitude."""
     from p2p_tpu_torch.kernels.fused_edit import fold_operands
@@ -1615,6 +1630,149 @@ def sd21_path(torch, K, pipe):
     return counts, stats
 
 
+def _edit_runner(torch, pipe, ctrl, x_t):
+    """``run(kernels, dtype, scheduler, steps)``: the Replace edit of
+    ``ctrl`` from ``x_t`` through ``text2image``, timed from a synchronized
+    card: (uint8 images, final latents, seconds)."""
+    from p2p_tpu_torch import text2image
+
+    def run(kernels, dtype=torch.float32, scheduler="ddim", steps=STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img, _, _, lat = text2image(pipe, PROMPTS, ctrl, num_steps=steps, latent=x_t,
+                                    kernels=kernels, device="cuda", return_latents=True,
+                                    dtype=dtype, scheduler=scheduler)
+        torch.cuda.synchronize()
+        return img, lat, time.perf_counter() - t
+
+    return run
+
+
+def _check_edit(torch, tag, img, lat, size, dtype) -> None:
+    if (img.shape != (2, size, size, 3) or img.dtype != torch.uint8 or lat.dtype != dtype
+            or not bool(torch.isfinite(lat).all())):
+        raise RuntimeError(f"{tag}: images {tuple(img.shape)} {img.dtype}, latents "
+                           f"{lat.dtype} or non-finite")
+
+
+def multistep_path(torch, K, pipe):
+    """The main path's SD-1.4 Replace edit (512², 2 prompts, 50 steps, CFG
+    7.5, store off) under the PLMS and the DPM-Solver++ samplers, in f32,
+    with ``kernels=KernelConfig()`` and with ``kernels=None``. PLMS makes 51
+    U-Net calls (its second timestep repeated), DPM 50: the launch counts
+    must be exactly 5 K1 and 22 K2 (each with its fold) a U-Net call plus 1
+    K1 for the VAE, and the final latents within ``DRIFT_TOL`` of the
+    materialized run's."""
+    from p2p_tpu_torch import KernelConfig, attention_replace
+
+    ctrl = attention_replace(PROMPTS, STEPS, 0.8, 0.4, pipe.tokenizer, store=False)
+    x_t = torch.randn((1, 64, 64, 4), generator=torch.Generator("cuda").manual_seed(8191),
+                      device="cuda")
+    run = _edit_runner(torch, pipe, ctrl, x_t)
+    counts, stats = {}, {}
+    for scheduler, calls in (("plms", STEPS + 1), ("dpm", STEPS)):
+        tag = f"sd14 {scheduler}"
+        K.reset_launch_counts()
+        img, lat, secs = run(KernelConfig(), scheduler=scheduler)
+        c = path_counts(K)
+        want = {**dict.fromkeys(c, 0), "flash_attn": calls * 5 + 1,
+                "fused_edit": calls * 22, "fused_edit_fold": calls * 22,
+                "flash_merge": vae_merges(torch, pipe, 2)}
+        if c != want:
+            raise RuntimeError(f"{tag} launch counts {c}, expected {want}")
+        _check_edit(torch, tag, img, lat, 512, torch.float32)
+        img_ref, lat_ref, secs_ref = run(None, scheduler=scheduler)
+        drift = max_err(torch, lat, lat_ref)
+        if drift > DRIFT_TOL:
+            raise RuntimeError(f"{tag}: fused-edit latents drift {drift} > {DRIFT_TOL}")
+        pix = (img.short() - img_ref.short()).abs().float()
+        counts[scheduler] = c
+        stats[scheduler] = {"s_per_pair": secs, "s_per_pair_materialized": secs_ref,
+                            "ms_per_step": secs / STEPS * 1e3, "unet_calls": calls,
+                            "ms_per_unet_call": secs / calls * 1e3,
+                            "latent_drift": drift, "launches": c}
+        print(f"{tag}: launches {c} ({calls} U-Net calls); latents max|Δ| vs "
+              f"kernels=None {drift:.3g}; image max|Δ| {pix.max().item():.0f} mean "
+              f"{pix.mean().item():.4f}")
+        print(f"{tag}: {secs:.3f} s per image pair with kernels ({secs / STEPS * 1e3:.2f} "
+              f"ms per step, {secs / calls * 1e3:.2f} ms per U-Net call, VAE and text "
+              f"encoder included), {secs_ref:.3f} s with kernels=None")
+    return counts, stats
+
+
+def ldm_path(torch, K):
+    """The LDM-256 Replace edit (``models/config.py:LDM256``: LDMBert, the
+    32² latent, head_dim 64, the VQ-f8 decode) at full width and depth from
+    random weights of seed 0: 2 prompts, DDIM 50 steps, CFG 5.0, store off,
+    in f32 and in bf16 (the decode in f32), each with
+    ``kernels=KernelConfig()`` and with ``kernels=None``. Its largest self
+    site has 1024 positions, under the flash threshold, so the exact launch
+    counts are K2 (with its fold) at every fused-edit site a step and
+    nothing else; f32: final latents within ``DRIFT_TOL`` of the
+    materialized run; bf16: the drift held as the SD-1.4 bf16 edit's
+    (:func:`bf16_drift`)."""
+    from p2p_tpu_torch import KernelConfig, attention_replace, random_pipeline
+    from p2p_tpu_torch.kernels.dispatch import site_variant
+    from p2p_tpu_torch.models.config import LDM256, unet_layout
+    from p2p_tpu_torch.utils.tokenizer import HashWordTokenizer
+
+    t0 = time.perf_counter()
+    tok = HashWordTokenizer(vocab_size=LDM256.text.vocab_size)
+    pipe = random_pipeline(LDM256, tok, "cuda", seed=0)
+    torch.cuda.synchronize()
+    print(f"LDM-256 random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
+    ctrl = attention_replace(PROMPTS, STEPS, 0.8, 0.4, tok, store=False)
+    metas = unet_layout(LDM256.unet).metas
+    variants = [site_variant(KernelConfig(), ctrl, m) for m in metas]
+    n_k2 = variants.count("fused-edit")
+    n_k1 = sum(1 for v, m in zip(variants, metas) if v == "flash" and m.pixels >= 2048)
+    if (n_k2, n_k1) != (27, 0):
+        raise RuntimeError(f"ldm256 dispatch: {n_k2} fused-edit and {n_k1} K1 sites, "
+                           "expected 27 and 0")
+    size = LDM256.latent_size
+    x_t = torch.randn((1, size, size, 4), generator=torch.Generator("cuda").manual_seed(8191),
+                      device="cuda")
+    run = _edit_runner(torch, pipe, ctrl, x_t)
+    stats, counts = {}, {}
+    lat_ref32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tag = "ldm256 bf16" if bf16 else "ldm256"
+        run(KernelConfig(), dtype, steps=2)          # warm-up: weights, cuDNN
+        K.reset_launch_counts()
+        img, lat, secs = run(KernelConfig(), dtype)
+        c = path_counts(K)
+        dims = K.head_dim_launch_counts()
+        sfx = "_bf16" if bf16 else ""
+        want = {**dict.fromkeys(c, 0), f"fused_edit{sfx}": STEPS * n_k2,
+                f"fused_edit_fold{sfx}": STEPS * n_k2}
+        if c != want or dims:
+            raise RuntimeError(f"{tag} launch counts {c} {dims}, expected {want} and "
+                               "no K1, K3 or K4")
+        _check_edit(torch, tag, img, lat, LDM256.image_size, dtype)
+        img_ref, lat_ref, secs_ref = run(None, dtype)
+        if bf16:
+            r = bf16_drift(torch, tag, lat, lat_ref, lat_ref32)
+        else:
+            r = {"latent_drift": max_err(torch, lat, lat_ref)}
+            if r["latent_drift"] > DRIFT_TOL:
+                raise RuntimeError(f"{tag}: fused-edit latents drift {r['latent_drift']} "
+                                   f"> {DRIFT_TOL}")
+            lat_ref32 = lat_ref
+        pix = (img.short() - img_ref.short()).abs().float()
+        stats[str(dtype).split(".")[-1]] = {
+            "s_per_pair": secs, "s_per_pair_materialized": secs_ref,
+            "ms_per_step": secs / STEPS * 1e3, **r, "launches": c}
+        counts[dtype] = c
+        print(f"{tag}: launches {c} ({n_k2} K2 sites); latents max|Δ| vs kernels=None "
+              f"{r['latent_drift']:.3g}; image max|Δ| {pix.max().item():.0f} mean "
+              f"{pix.mean().item():.4f}")
+        print(f"{tag}: {secs:.3f} s per image pair with kernels ({secs / STEPS * 1e3:.2f} "
+              f"ms per step, VAE and text encoder included), {secs_ref:.3f} s with "
+              f"kernels=None")
+    return counts, stats
+
+
 def compare_inversions(art, art16, inv, inv16, tag: str) -> None:
     """Record in ``inv16`` and print the bf16 inversion beside the f32 one:
     times, ms per inner iteration, peak memory, and the bf16-vs-f32 RMS
@@ -1719,19 +1877,20 @@ def main() -> int:
     k1_d512_bf16 = k1_d512_bf16_phases(torch, K, F)
     d512_splits = d512_split_sweep(torch, F)
     window_sums = window_sum_phase(torch, K)
-    from p2p_tpu_torch.models.config import SD21, SD21_BASE
+    from p2p_tpu_torch.models.config import LDM256, SD21, SD21_BASE
 
     k1_d64 = k1_d64_phases(torch, K, F, torch.float32)
     k1_d64_bf16 = k1_d64_phases(torch, K, F, torch.bfloat16)
     k34_d64 = k34_d64_phases(torch, K, F, torch.float32)
     k34_d64_bf16 = k34_d64_phases(torch, K, F, torch.bfloat16)
-    k2_d64 = k2_phases(torch, K, F, cfgs=(SD21, SD21_BASE))
-    k2_d64_bf16 = k2_phases(torch, K, F, torch.bfloat16, cfgs=(SD21, SD21_BASE))
+    k2_d64 = k2_phases(torch, K, F, cfgs=(SD21, SD21_BASE, LDM256))
+    k2_d64_bf16 = k2_phases(torch, K, F, torch.bfloat16, cfgs=(SD21, SD21_BASE, LDM256))
     t0 = time.perf_counter()
     pipe = random_pipeline(SD14, HashWordTokenizer(), "cuda", seed=0)
     torch.cuda.synchronize()
     print(f"SD-1.4 random weights from seed 0 in {time.perf_counter() - t0:.1f} s")
     counts, counts16, path = main_path(torch, K, pipe)
+    ms_counts, multistep = multistep_path(torch, K, pipe)
     art, image, inversion = inversion_path(torch, K, pipe, steps=SD14_INVERSION_STEPS)
     replay_counts, replay_lat, replay = replay_path(torch, K, pipe, art, image)
     replay16_counts, _, replay16 = replay_path(torch, K, pipe, art, image, torch.bfloat16,
@@ -1756,6 +1915,10 @@ def main() -> int:
     dims_inv21, dims_inv21_16 = (sd21_inv[k]["launches_by_head_dim"] for k in ("f32", "bf16"))
     (c21, dims21), (c21_16, dims21_16) = (sd21_counts[torch.float32],
                                           sd21_counts[torch.bfloat16])
+    del pipe
+    torch.cuda.empty_cache()
+    ldm_counts, ldm = ldm_path(torch, K)
+    c_ldm, c_ldm16 = ldm_counts[torch.float32], ldm_counts[torch.bfloat16]
     inv_counts = inversion["launches"]
     inv16_counts = inversion16["launches"]
     result = {"kernels": [
@@ -1764,6 +1927,7 @@ def main() -> int:
                      merge_launches={"main_path": counts["flash_merge"],
                                      "inversion": inv_counts["flash_merge"],
                                      "replay": replay_counts["flash_merge"]},
+                     multistep_launches={k: c["flash_attn"] for k, c in ms_counts.items()},
                      sd21_d512_launches={"f32": dims21["K1 f32 d=512"],
                                          "bf16": dims21_16["K1 f32 d=512"],
                                          "inversion": dims_inv21["K1 f32 d=512"],
@@ -1777,7 +1941,9 @@ def main() -> int:
         kernel_entry("fused_edit", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", counts["fused_edit"], k2,
                      fold_launches={"main_path": counts["fused_edit_fold"],
-                                    "replay": replay_counts["fused_edit_fold"]},
+                                    "replay": replay_counts["fused_edit_fold"],
+                                    **{k: c["fused_edit_fold"] for k, c in ms_counts.items()}},
+                     multistep_launches={k: c["fused_edit"] for k, c in ms_counts.items()},
                      units="tensor cores, 3xTF32 (edit_attn_kernel), after an f32 "
                            "fold on the CUDA cores (fold_kernel)",
                      note="launches counts wrapper calls; each also launches "
@@ -1922,16 +2088,23 @@ def main() -> int:
         kernel_entry("fused_edit_d64", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", c21["fused_edit"], k2_d64,
                      fold_launches=c21["fused_edit_fold"],
+                     ldm256_launches=c_ldm["fused_edit"],
+                     ldm256_fold_launches=c_ldm["fused_edit_fold"],
                      units="tensor cores, 3xTF32 (edit_attn_kernel<64>) after fold_kernel",
-                     note="K2 at D = 64, the SD-2.1 geometries (sd21 and sd21base); "
-                          "launches from the sd21 f32 edit; as fused_edit otherwise"),
+                     note="K2 at D = 64, the SD-2.1 geometries (sd21 and sd21base) and "
+                          "LDM-256's; launches from the sd21 f32 edit, ldm256_launches "
+                          "from the LDM-256 f32 edit; as fused_edit otherwise"),
         kernel_entry("fused_edit_d64_bf16", "p2p_tpu_torch/csrc/fused_edit.cu",
                      "p2p_tpu/kernels/fused_edit.py:210", c21_16["fused_edit_bf16"],
                      k2_d64_bf16, fold_launches=c21_16["fused_edit_fold_bf16"],
+                     ldm256_launches=c_ldm16["fused_edit_bf16"],
+                     ldm256_fold_launches=c_ldm16["fused_edit_fold_bf16"],
                      units="tensor cores, bf16 (edit_attn_bf16_kernel<64>) after "
                            "fold_kernel<bf16>",
-                     note="as fused_edit_d64, in bf16; launches from the sd21 bf16 edit"),
-    ], "main_path": path, "inversion": inversion, "replay": replay, "sd21": sd21,
+                     note="as fused_edit_d64, in bf16; launches from the sd21 bf16 edit, "
+                          "ldm256_launches from the LDM-256 bf16 edit"),
+    ], "main_path": path, "multistep": multistep, "inversion": inversion,
+        "replay": replay, "sd21": sd21, "ldm256": ldm,
         "d512_key_splits": d512_splits,
         "replay_launches": replay_counts, "replay_bf16_launches": replay16_counts,
         "replay_bf16_of_bf16_artifact_launches": replay16i_counts,

@@ -5,6 +5,8 @@
         --source "a cat riding a bicycle" --target "a dog riding a bicycle" \\
         --steps 50 --seeds 8191 --kernels --out-dir out/
     python -m p2p_tpu_torch edit --preset sd21 ...  (SD-2.1 768-v; sd21base 512)
+    python -m p2p_tpu_torch edit --preset ldm256 ...  (LDM-256: LDMBert, VQ-f8)
+    python -m p2p_tpu_torch edit --preset sd14 --scheduler plms ...  (or dpm)
     python -m p2p_tpu_torch invert --preset sd14 --image cat.png \\
         --prompt "a cat riding a bicycle" --artifact out/inversion.npz
     python -m p2p_tpu_torch replay --preset sd14 --artifact out/inversion.npz \\
@@ -14,11 +16,13 @@
     python -m p2p_tpu_torch replay --preset sd21 ... --blend-resolution 24
 
 Weights are random (from fixed seeds) and prompts go through the hash-word
-tokenizer: loading a checkpoint needs the CLIP BPE tokenizer, which is not
-ported yet. Runs on CUDA unless ``--device cpu`` is given. The JAX CLI's
-flags this slice does not support are rejected with a message, never
-ignored; so are ``invert`` and ``replay`` on a config whose inversion would
-need K4 at a head dim it has no kernel for (every preset has them).
+tokenizer, its ids within the text encoder's vocabulary (30522 at LDM):
+loading a checkpoint needs the CLIP BPE tokenizer, which is not ported
+yet. Runs on CUDA unless ``--device cpu`` is given. The JAX CLI's flags
+this slice does not support are rejected with a message, never ignored; so
+are ``invert`` and ``replay`` at the LDM presets, where the JAX package
+runs no null-text inversion, and on a config whose inversion would need K4
+at a head dim it has no kernel for (every SD preset has them).
 
 LocalBlend reads the cross maps stored at ``--blend-resolution``, a
 quarter of the latent side: the default 16 at SD-1.4 and 512-base (64²
@@ -55,10 +59,17 @@ def _reject_unsupported(args) -> None:
                              f"(needs {what}, a later slice of the port)")
 
 
+# Presets without null-text inversion: the JAX package runs none at LDM.
+_NO_INVERSION = ("ldm256", "tiny_ldm")
+
+
 def _reject_inversion(args) -> None:
     from .engine.inversion import require_k4
     from .models.config import PRESET_CONFIGS
 
+    if args.preset in _NO_INVERSION:
+        raise SystemExit(f"{args.cmd} --preset {args.preset} is not supported: "
+                         "the JAX package runs no null-text inversion at LDM")
     require_k4(PRESET_CONFIGS[args.preset], f"{args.cmd} --preset {args.preset}")
 
 
@@ -68,7 +79,8 @@ def _build_pipeline(args):
     from .utils.tokenizer import HashWordTokenizer
 
     cfg = PRESET_CONFIGS[args.preset]
-    tok = HashWordTokenizer(model_max_length=cfg.text.max_length)
+    tok = HashWordTokenizer(vocab_size=cfg.text.vocab_size,
+                            model_max_length=cfg.text.max_length)
     return random_pipeline(cfg, tok, args.device)
 
 
@@ -128,6 +140,7 @@ def cmd_generate(args) -> int:
     for seed in args.seeds:
         img, _, _ = text2image(pipe, [args.prompt], None, num_steps=args.steps,
                                guidance_scale=args.guidance,
+                               scheduler=args.scheduler,
                                generator=_generator(pipe, seed),
                                negative_prompt=args.negative_prompt,
                                device=pipe.device)
@@ -151,6 +164,7 @@ def cmd_edit(args) -> int:
     out_dir = args.out_dir or os.path.join("logs", time.strftime("%y%m%d_%H%M%S"))
     for seed in args.seeds:
         common = dict(num_steps=args.steps, guidance_scale=args.guidance,
+                      scheduler=args.scheduler,
                       negative_prompt=args.negative_prompt, device=pipe.device)
         base, x_t, _ = text2image(pipe, prompts, None,
                                   generator=_generator(pipe, seed), **common)
@@ -228,7 +242,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def model_opts(sp):
-        sp.add_argument("--preset", choices=("tiny", "sd14", "sd21", "sd21base"),
+        sp.add_argument("--preset", choices=("tiny", "sd14", "sd21", "sd21base",
+                                             "ldm256", "tiny_ldm"),
                         default="tiny")
         sp.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' must be "
@@ -248,7 +263,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="word=scale[,word=scale...] reweighting")
         sp.add_argument("--blend-resolution", type=int, default=16,
                         help="side of the cross maps LocalBlend reads: 16 at "
-                             "512² (sd14, sd21base), 24 at 768² (sd21)")
+                             "512² (sd14, sd21base) and 256² (ldm256), 24 at "
+                             "768² (sd21)")
         sp.add_argument("--kernels", action="store_true",
                         help="run the edited sites through the fused-edit kernel")
         sp.add_argument("--attn-maps", default=None, help=argparse.SUPPRESS)
@@ -256,8 +272,8 @@ def build_parser() -> argparse.ArgumentParser:
     def common(sp):
         model_opts(sp)
         sp.add_argument("--steps", type=int, default=50)
-        sp.add_argument("--scheduler", choices=("ddim",), default="ddim",
-                        help="only DDIM is ported")
+        sp.add_argument("--scheduler", choices=("ddim", "plms", "dpm"),
+                        default="ddim")
         sp.add_argument("--seeds", type=_int_list, default=[8191],
                         help="comma-separated seed sweep")
         sp.add_argument("--negative-prompt", default=None)

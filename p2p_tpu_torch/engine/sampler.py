@@ -2,10 +2,12 @@
 
 The PyTorch counterpart of the ungated path of
 ``p2p_tpu/engine/sampler.py``: the denoising loop is a Python loop over the
-DDIM timesteps whose body is the JAX package's scan body
-(classifier-free guidance by batch doubling, one U-Net call on
-``[uncond; cond]``, the controller hook at every attention site, the
-scheduler step, the latent hook); the store state is carried explicitly.
+scheduler's timesteps (DDIM, PLMS or DPM-Solver++) whose body is the JAX
+package's scan body (classifier-free guidance by batch doubling, one U-Net
+call on ``[uncond; cond]``, the controller hook at every attention site,
+the scheduler step, the latent hook); the store state and the scheduler's
+multistep state are carried explicitly, the latter in the latents' dtype.
+A PLMS run of T steps makes T + 1 U-Net calls, its step index running to T.
 All prompts of an edit group start from one latent. A null-text replay
 substitutes each step's optimized uncond embedding
 (``uncond_embeddings``, from ``engine.inversion.invert``).
@@ -18,8 +20,8 @@ convolutions: the JAX reference's f32 is full f32.
 bf16 as the JAX package does (``p2p_tpu/engine/sampler.py``): their weights
 cast once per pipeline (:meth:`Pipeline.weights`), the attention
 probabilities, the store and the edit in f32, classifier-free guidance
-promoted to f32 by the f32 guidance scale, the DDIM step in f32 on a bf16
-carry, and the VAE decode in f32.
+promoted to f32 by the f32 guidance scale, the scheduler step in f32 on a
+bf16 carry, and the VAE decode in f32.
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ class Pipeline:
             cfg = self.config
             self._cast[dtype] = (cast(self.unet, ck.unet_entries(cfg.unet)),
                                  cast(self.text_encoder,
-                                      ck.text_encoder_entries(cfg.text)))
+                                      ck.encoder_entries(cfg.text)))
         return self._cast[dtype]
 
     def vae_encoder_weights(self, dtype) -> StateDict:
@@ -188,6 +190,8 @@ def denoise(pipe: Pipeline, context: torch.Tensor, latents: torch.Tensor,
                                            kind=scheduler, device=latents.device)
     state = (init_store_state(layout, b, device=latents.device)
              if controller is not None and controller.needs_store else ())
+    ms = sched_mod.init_multistep_state(scheduler, latents.shape, latents.dtype,
+                                        latents.device)
     for step, t in enumerate(sched.timesteps.tolist()):
         ctx = context
         if uncond_embeddings is not None:
@@ -200,7 +204,8 @@ def denoise(pipe: Pipeline, context: torch.Tensor, latents: torch.Tensor,
         eps_uncond, eps_text = eps[:b], eps[b:]
         eps = eps_uncond.float() + guidance_scale * (eps_text.float() - eps_uncond.float())
         eps = sched_mod.to_epsilon(sched, eps, t, latents)
-        latents = sched_mod.ddim_step(sched, eps, t, latents)
+        ms, latents = sched_mod.multistep_step(sched, scheduler, ms, eps, t,
+                                               latents)
         latents = apply_step_callback(controller, layout, state, latents, step)
     return latents, state
 
@@ -232,7 +237,8 @@ def text2image(
     fourth element when ``return_latents``.
 
     ``latent`` fixes x_T; otherwise it is drawn from ``generator`` (a
-    ``torch.Generator``; seed 0 on the device when None). ``kernels`` (a
+    ``torch.Generator``; seed 0 on the device when None). ``scheduler`` is
+    ``"ddim"``, ``"plms"`` or ``"dpm"``. ``kernels`` (a
     ``kernels.KernelConfig``) sends covered, kernel-compilable edited sites
     to the fused-edit kernel. ``negative_prompt`` replaces the ``""``
     unconditional text. ``uncond_embeddings`` ``(T, 1, L, D)`` (a null-text

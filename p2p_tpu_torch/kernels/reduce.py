@@ -9,7 +9,8 @@ add, and its CPU compiler cuts each reduced dimension longer than
 above), sums each window sequentially in row-major order and reduces the
 windows again, until no reduced dimension is longer than the window; then
 it sums what is left sequentially (:func:`stages`). :func:`window_sum` is
-that sum; :class:`BroadcastWindowSum` is a broadcast whose backward is it.
+that sum; :func:`broadcast_sum` sums a broadcast's cotangent with it (the
+bf16 norms' backward, ``models/nn.py``).
 
 On a CPU tensor :func:`window_sum` runs its plain version; on a CUDA tensor
 it launches the kernels of ``csrc/window_sum.cu`` once a stage, from one
@@ -21,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -118,20 +119,15 @@ def window_sum(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
 window_sum.launches = 0
 
 
-class BroadcastWindowSum(torch.autograd.Function):
-    """``a`` (bf16) broadcast to ``shape``; its cotangent summed by
-    :func:`window_sum` over the broadcast dimensions, taken in the JAX
-    package's order: ``order`` lists the dimensions of ``shape`` in that
-    order (None: the same)."""
+def broadcast_sum(c: torch.Tensor, shape: Sequence[int],
+                  order: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``c`` (bf16) summed to ``shape`` by :func:`window_sum`: over the
+    dimensions where ``shape`` is 1 and ``c`` is not, with the dimensions of
+    ``c`` taken in the JAX package's order (``order``: the dimensions of
+    ``c`` in that order; None: the same) — the cotangent of a broadcast of
+    a tensor of ``shape`` to ``c``'s."""
+    order = list(range(c.dim())) if order is None else list(order)
+    dims = [i for i, d in enumerate(order) if shape[d] == 1 and c.shape[d] != 1]
+    back = sorted(range(len(order)), key=order.__getitem__)
+    return window_sum(c.permute(order), dims).permute(back)
 
-    @staticmethod
-    def forward(ctx, a, shape, order):
-        ctx.order = list(range(len(shape))) if order is None else list(order)
-        ctx.dims = [i for i, d in enumerate(ctx.order) if a.shape[d] == 1 and shape[d] != 1]
-        return a.expand(shape)
-
-    @staticmethod
-    def backward(ctx, c):
-        s = window_sum(c.permute(ctx.order), ctx.dims)
-        back = sorted(range(len(ctx.order)), key=ctx.order.__getitem__)
-        return s.permute(back), None, None

@@ -5,7 +5,9 @@ diffusers names (``down_blocks.0.resnets.0.conv1.weight``) in torch layouts
 (Linear ``(out, in)``, Conv ``(O, I, kH, kW)``). This module holds:
 
 - the name tables ``unet_entries`` / ``text_encoder_entries`` /
-  ``vae_entries``: a jax-free copy of ``p2p_tpu/models/checkpoint.py``'s,
+  ``ldm_text_encoder_entries`` / ``vae_entries``: a jax-free copy of
+  ``p2p_tpu/models/checkpoint.py``'s (``encoder_entries`` picks the text
+  encoder's by its ``arch``),
   mapping each JAX parameter-tree path to its diffusers name and layout
   transform (``tests/test_torch_copies.py`` holds them equal);
 - :func:`from_jax_params`, which turns a JAX parameter pytree (nested
@@ -159,6 +161,40 @@ def text_encoder_entries(cfg: TextEncoderConfig) -> List[Entry]:
         e += _lin(("layers", i, "fc2"), base + ".mlp.fc2")
     e += _norm(("final_ln",), "text_model.final_layer_norm")
     return e
+
+
+def ldm_text_encoder_entries(cfg: TextEncoderConfig) -> List[Entry]:
+    """diffusers ``LDMBertModel`` names: pre-norm encoder layers under
+    ``model.layers.N``, learned position embeddings, final
+    ``model.layer_norm``."""
+    e: List[Entry] = [
+        (("token_embed",), "model.embed_tokens.weight", "none"),
+        (("pos_embed",), "model.embed_positions.weight", "none"),
+    ]
+    for i in range(cfg.num_layers):
+        base = f"model.layers.{i}"
+        e += _norm(("layers", i, "ln1"), base + ".self_attn_layer_norm")
+        e += _lin(("layers", i, "q"), base + ".self_attn.q_proj",
+                  bias=cfg.attn_qkv_bias)
+        e += _lin(("layers", i, "k"), base + ".self_attn.k_proj",
+                  bias=cfg.attn_qkv_bias)
+        e += _lin(("layers", i, "v"), base + ".self_attn.v_proj",
+                  bias=cfg.attn_qkv_bias)
+        e += _lin(("layers", i, "out"), base + ".self_attn.out_proj")
+        e += _norm(("layers", i, "ln2"), base + ".final_layer_norm")
+        e += _lin(("layers", i, "fc1"), base + ".fc1")
+        e += _lin(("layers", i, "fc2"), base + ".fc2")
+    e += _norm(("final_ln",), "model.layer_norm")
+    return e
+
+
+def encoder_entries(cfg: TextEncoderConfig) -> List[Entry]:
+    """The text encoder's name table for its ``arch``."""
+    if cfg.arch == "ldmbert":
+        return ldm_text_encoder_entries(cfg)
+    if cfg.arch == "clip":
+        return text_encoder_entries(cfg)
+    raise ValueError(f"unknown text encoder arch: {cfg.arch!r}")
 
 
 def _vae_attn(our, their) -> List[Entry]:
@@ -435,28 +471,27 @@ def init_unet(cfg: UNetConfig, seed: Optional[int], device) -> StateDict:
 
 def init_text_encoder(cfg: TextEncoderConfig, seed: Optional[int],
                       device) -> StateDict:
-    """Random CLIP text-encoder weights (embeddings N(0, 0.02²) and
-    N(0, 0.01²), as the JAX package draws them)."""
-    if cfg.arch != "clip":
-        raise NotImplementedError(f"text encoder arch {cfg.arch!r} is not "
-                                  "ported to p2p_tpu_torch")
+    """Random text-encoder weights under the names of its ``arch``
+    (:func:`encoder_entries`): embeddings N(0, 0.02²) and N(0, 0.01²), as
+    the JAX package draws them."""
     m = _Maker(seed, device)
-    d = cfg.hidden_dim
-    m.normal("text_model.embeddings.token_embedding.weight",
-             (cfg.vocab_size, d), 0.02)
-    m.normal("text_model.embeddings.position_embedding.weight",
-             (cfg.max_length, d), 0.01)
+    d, inner = cfg.hidden_dim, cfg.inner_dim
+    names = {path: name for path, name, _ in encoder_entries(cfg)}
+
+    def base(i, leaf):
+        return names[("layers", i) + leaf].rsplit(".", 1)[0]
+
+    m.normal(names[("token_embed",)], (cfg.vocab_size, d), 0.02)
+    m.normal(names[("pos_embed",)], (cfg.max_length, d), 0.01)
     for i in range(cfg.num_layers):
-        base = f"text_model.encoder.layers.{i}"
-        m.norm(base + ".layer_norm1", d)
-        for proj in ("q_proj", "k_proj", "v_proj"):
-            m.linear(f"{base}.self_attn.{proj}", d, cfg.inner_dim,
-                     bias=cfg.attn_qkv_bias)
-        m.linear(base + ".self_attn.out_proj", cfg.inner_dim, d)
-        m.norm(base + ".layer_norm2", d)
-        m.linear(base + ".mlp.fc1", d, d * cfg.ff_mult)
-        m.linear(base + ".mlp.fc2", d * cfg.ff_mult, d)
-    m.norm("text_model.final_layer_norm", d)
+        m.norm(base(i, ("ln1", "scale")), d)
+        for proj in ("q", "k", "v"):
+            m.linear(base(i, (proj, "kernel")), d, inner, bias=cfg.attn_qkv_bias)
+        m.linear(base(i, ("out", "kernel")), inner, d)
+        m.norm(base(i, ("ln2", "scale")), d)
+        m.linear(base(i, ("fc1", "kernel")), d, d * cfg.ff_mult)
+        m.linear(base(i, ("fc2", "kernel")), d * cfg.ff_mult, d)
+    m.norm(names[("final_ln", "scale")].rsplit(".", 1)[0], d)
     return m.sd
 
 
@@ -470,10 +505,12 @@ def _init_vae_mid(m: _Maker, name: str, ch: int):
 
 
 def init_vae(cfg: VAEConfig, seed: Optional[int], device) -> StateDict:
-    """Random KL-autoencoder weights (encoder and decoder)."""
-    if cfg.kind != "kl":
-        raise NotImplementedError(f"VAE kind {cfg.kind!r} is not ported to "
-                                  "p2p_tpu_torch")
+    """Random autoencoder weights (encoder and decoder). The VQ kind's
+    encoder gives the embedding itself (``latent_channels`` wide, where the
+    KL kind's gives mean and log-variance), and its codebook is drawn from
+    U(±1/``num_codebook``), as the JAX package draws it."""
+    if cfg.kind not in ("kl", "vq"):
+        raise ValueError(f"unknown VAE kind: {cfg.kind!r}")
     m = _Maker(seed, device)
     chs = [cfg.base_channels * mult for mult in cfg.channel_mults]
     top, lat = chs[-1], cfg.latent_channels
@@ -487,8 +524,16 @@ def init_vae(cfg: VAEConfig, seed: Optional[int], device) -> StateDict:
             m.conv(f"encoder.down_blocks.{lvl}.downsamplers.0.conv", out_ch, out_ch)
     _init_vae_mid(m, "encoder.mid_block", top)
     m.norm("encoder.conv_norm_out", top)
-    m.conv("encoder.conv_out", top, 2 * lat)
-    m.conv("quant_conv", 2 * lat, 2 * lat, k=1)
+    moments = lat if cfg.kind == "vq" else 2 * lat
+    m.conv("encoder.conv_out", top, moments)
+    m.conv("quant_conv", moments, moments, k=1)
+    if cfg.kind == "vq":
+        cb = torch.empty((cfg.num_codebook, lat), dtype=torch.float32,
+                         device=m.device)
+        if m.gen is not None:
+            cb.uniform_(-1.0 / cfg.num_codebook, 1.0 / cfg.num_codebook,
+                        generator=m.gen)
+        m.sd["quantize.embedding.weight"] = cb
     m.conv("post_quant_conv", lat, lat, k=1)
     m.conv("decoder.conv_in", lat, top)
     _init_vae_mid(m, "decoder.mid_block", top)

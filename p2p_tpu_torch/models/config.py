@@ -1,7 +1,7 @@
 """Model configurations and static attention-layout derivation.
 
 A jax-free copy of the slice of ``p2p_tpu/models/config.py`` the port runs:
-the SD-1.4, SD-2.1 (768-v and 512-base) and TINY configs,
+the SD-1.4, SD-2.1 (768-v and 512-base), LDM-256 and TINY configs,
 :func:`unet_attn_specs` and :func:`unet_layout`. The attention structure is a pure function of the
 config: :func:`unet_attn_specs` enumerates every attention call site (place,
 kind, resolution, heads, key length) in exact call order and feeds
@@ -126,10 +126,12 @@ class TextEncoderConfig:
     ff_mult: int = 4
     activation: str = "quick_gelu"         # CLIP-L uses quick_gelu
     causal: bool = True
-    # Attention projection width (heads·head_dim); None → hidden_dim.
+    # Attention projection width (heads·head_dim). CLIP is square (None →
+    # hidden_dim); LDMBert projects 1280 → 8·64 = 512 and back.
     attn_inner_dim: Optional[int] = None
+    # LDMBert's q/k/v projections carry no bias (out_proj does).
     attn_qkv_bias: bool = True
-    # Checkpoint-name architecture: only 'clip' (CLIPTextModel) is ported.
+    # Checkpoint-name architecture: 'clip' (CLIPTextModel) | 'ldmbert'.
     arch: str = "clip"
 
     @property
@@ -144,7 +146,10 @@ TINY_TEXT = TextEncoderConfig(vocab_size=49408, hidden_dim=32, num_layers=2,
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
-    """Latent autoencoder; the port decodes the KL (`AutoencoderKL`) kind."""
+    """Latent autoencoder: KL (`AutoencoderKL`, SD) or VQ (`VQModel`, LDM).
+
+    ``kind='vq'`` adds a codebook: decode first snaps each latent vector to
+    its nearest codebook entry."""
 
     in_channels: int = 3
     latent_channels: int = 4
@@ -204,6 +209,34 @@ SD14 = PipelineConfig("sd-v1.4", SD14_UNET, SD14_TEXT, SD14_VAE, image_size=512)
 TINY = PipelineConfig("tiny", TINY_UNET, TINY_TEXT, TINY_VAE, image_size=64,
                       num_steps=4)
 
+# LDM text2im-large-256: BERT-style (non-causal, gelu) 1280-d text encoder
+# (vocab 30522), 32² latent pyramid (256² image, f8 VQ autoencoder), heads
+# at fixed head_dim 64 (5/10/20 per level), VQ codebook decode.
+LDM_UNET = UNetConfig(
+    sample_size=32,
+    in_channels=4,
+    out_channels=4,
+    block_channels=(320, 640, 1280, 1280),
+    attn_levels=(True, True, True, False),
+    layers_per_block=2,
+    head_dim=64,
+    context_dim=1280,
+    context_len=77,
+)
+LDM_TEXT = TextEncoderConfig(vocab_size=30522, hidden_dim=1280, num_layers=32,
+                             num_heads=8, max_length=77, activation="gelu",
+                             causal=False, attn_inner_dim=8 * 64,
+                             attn_qkv_bias=False, arch="ldmbert")
+# channel_mults (1,2,2,4) = 3 downsamples = f8: 256² image ⇄ 32² latent; the
+# decode scales by 1 / 0.18215 as the KL kind's does.
+LDM_VAE = VAEConfig(base_channels=128, channel_mults=(1, 2, 2, 4),
+                    latent_channels=4, kind="vq", num_codebook=16384)
+LDM256 = PipelineConfig("ldm-text2im-256", LDM_UNET, LDM_TEXT, LDM_VAE,
+                        image_size=256, guidance_scale=5.0, num_steps=50,
+                        scheduler=SchedulerConfig(
+                            beta_start=0.0015, beta_end=0.0195,
+                            plms_steps_offset=0))
+
 # SD-2.1 family: OpenCLIP ViT-H text tower realized as 23 transformer layers
 # (diffusers' checkpoint conversion truncates layer 24 so the final-LN
 # output is the penultimate hidden state SD-2 conditions on), gelu
@@ -219,10 +252,28 @@ SD21 = PipelineConfig(
     SD14_VAE, image_size=768,
     scheduler=SchedulerConfig(prediction_type="v_prediction"))
 
-# The presets this slice of the port runs (CLI ``--preset``).
+# Tiny LDM-shaped backend for tests: per-level heads via head_dim, the
+# non-causal text encoder without q/k/v bias, the VQ decoder and the LDM β
+# schedule, at toy sizes.
+TINY_LDM_UNET = dataclasses.replace(
+    TINY_UNET, num_heads=1, head_dim=16, block_channels=(32, 64, 64))
+TINY_LDM_TEXT = dataclasses.replace(
+    TINY_TEXT, causal=False, activation="gelu", attn_inner_dim=32,
+    attn_qkv_bias=False, arch="ldmbert", vocab_size=30522)
+TINY_LDM_VAE = dataclasses.replace(TINY_VAE, kind="vq", num_codebook=64)
+TINY_LDM = PipelineConfig("tiny-ldm", TINY_LDM_UNET, TINY_LDM_TEXT,
+                          TINY_LDM_VAE, image_size=64, num_steps=4,
+                          guidance_scale=5.0,
+                          scheduler=SchedulerConfig(
+                              beta_start=0.0015, beta_end=0.0195,
+                              plms_steps_offset=0))
+
+# The presets the port runs (CLI ``--preset``): the JAX package's table.
 PRESET_CONFIGS = {
     "tiny": TINY,
     "sd14": SD14,
     "sd21": SD21,
     "sd21base": SD21_BASE,
+    "ldm256": LDM256,
+    "tiny_ldm": TINY_LDM,
 }

@@ -65,20 +65,143 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     return F.conv2d(x, weight, stride=stride, padding=padding) + bias[:, None, None]
 
 
-def _broadcast(a: torch.Tensor, shape, order=None) -> torch.Tensor:
-    """``a``, a norm's statistic rounded below f32, as broadcast over
-    ``shape``. Where autograd records it, the backward sums its cotangent
-    as the JAX program's compiled backward does, in the carrier dtype with
+def _stat_sum(c: torch.Tensor, shape, order) -> torch.Tensor:
+    """``c`` (bf16) summed to ``shape``, a norm's statistic's, as the JAX
+    program's compiled backward sums a broadcast's cotangent: in bf16 with
     the running sum rounded at every add, windowed as XLA's CPU compiler
     windows it, over the broadcast dimensions taken in the JAX package's
-    order (``order``: the dimensions of ``shape`` in that order)
-    (``kernels.reduce``); autograd's own sum accumulates in f32 and
-    rounds once."""
-    if not (torch.is_grad_enabled() and a.requires_grad):
-        return a
-    from ..kernels.reduce import BroadcastWindowSum
+    order (``order``: the dimensions of ``c`` in that order)
+    (``kernels.reduce``)."""
+    from ..kernels.reduce import broadcast_sum
 
-    return BroadcastWindowSum.apply(a, shape, order)
+    return broadcast_sum(c, shape, order)
+
+
+def _norm_stats(x: torch.Tensor, src: Optional[torch.Tensor], red):
+    """The shifted two-pass statistics of a bf16 norm over ``red``: the f32
+    mean (of ``src``, the unrounded input, where there is one) rounded to
+    bf16, the rounding's residual in f32, and the variance, the centred
+    values' f32 variance less the residual's square."""
+    mean = (x.float() if src is None else src).mean(dim=red, keepdim=True)
+    m16 = mean.to(x.dtype)
+    cvar = (x.float() - m16.float()).square().mean(dim=red, keepdim=True)
+    resid = mean - m16.float()
+    return m16, resid, cvar - resid.square()
+
+
+def _norm_input_cotangent(x, m16, resid, var, rsq, dc1, d_inv, d_resid_shift,
+                          n, eps, sum_mean):
+    """The rest of a bf16 norm's backward, shared by both norms, in the
+    order and with the roundings of the JAX program's compiled backward
+    (``jax.jit(jax.vjp(nn.layer_norm / nn.group_norm, x)[1])``'s HLO on
+    the CPU): the variance's cotangent in f32 from ``d_inv`` (the f32
+    cotangent of ``rsqrt(var + eps)``), the centred values' cotangent
+    rounded twice (the variance's part, then with ``dc1``, the output
+    product's part), the mean's through its bf16 rounding and the
+    residual, and the input's as the centred values' plus the mean's
+    share rounded; ``n`` values a statistic. ``sum_mean`` sums the centred
+    values' cotangent to the rounded mean's shape (the windowed bf16
+    sum)."""
+    d_var = d_inv * ((rsq / (var + eps)) * -0.5)
+    dcv = ((x.float() - m16.float()) * (d_var * (2.0 / n))).to(x.dtype)
+    dc = dc1 + dcv
+    dm16 = -sum_mean(dc)
+    d_resid = d_resid_shift + (-d_var) * (resid * 2.0)
+    d_mean = d_resid + ((-d_resid).to(x.dtype).float() + dm16.float())
+    return dc + (d_mean * (1.0 / n)).to(x.dtype)
+
+
+def _group_norm_lowp(xg, weight, bias, eps):
+    """The bf16 group norm of :func:`group_norm` on the grouped NCHW input
+    ``xg`` ``(n, g, c/g, *pixels)``: the output and what its backward
+    keeps."""
+    g, cg = xg.shape[1], xg.shape[2]
+    expand = (None,) * (xg.dim() - 3)
+    m16, resid, var = _norm_stats(xg, None, tuple(range(2, xg.dim())))
+    scale = weight.float().reshape(g, cg)[(..., *expand)]
+    rsq = torch.rsqrt(var + eps)
+    inv = rsq * scale
+    shift = bias.float().reshape(g, cg)[(..., *expand)] - resid * inv
+    inv16 = inv.to(xg.dtype)
+    y = (xg - m16) * inv16 + shift.to(xg.dtype)
+    return y, (xg, m16, resid, var, rsq, scale, inv16)
+
+
+def _layer_norm_lowp(x, src, weight, bias, eps):
+    """The bf16 layer norm of :func:`layer_norm`: the output and what its
+    backward keeps."""
+    m16, resid, var = _norm_stats(x, src, -1)
+    rsq = torch.rsqrt(var + eps)
+    scale_shift = bias.float() - resid * rsq * weight.float()
+    inv16 = rsq.to(x.dtype)
+    y = ((x - m16) * inv16) * weight.to(x.dtype) + scale_shift.to(x.dtype)
+    return y, (x, m16, resid, var, rsq, inv16, weight)
+
+
+class _GroupNormLowp(torch.autograd.Function):
+    """:func:`_group_norm_lowp` with the backward the JAX program compiles
+    (:func:`_norm_input_cotangent`): the shift's and the inverse
+    deviation's cotangents summed over the pixels in bf16
+    (:func:`_stat_sum`), the rest in f32 and rounded where XLA rounds."""
+
+    @staticmethod
+    def forward(ctx, xg, weight, bias, eps):
+        y, saved = _group_norm_lowp(xg, weight, bias, eps)
+        ctx.save_for_backward(*saved)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, c):
+        xg, m16, resid, var, rsq, scale, inv16 = ctx.saved_tensors
+        nhwc = [0, *range(3, xg.dim()), 1, 2]       # (n, pixels..., g, c/g)
+        d_shift = _stat_sum(c, inv16.shape, nhwc).float()
+        d_inv16 = _stat_sum((xg - m16) * c, inv16.shape, nhwc)
+        d_inv = d_inv16.float() + resid * -d_shift
+        d_rsq = (d_inv * scale).sum(dim=2, keepdim=True)
+        d_resid = (-d_shift * (rsq * scale)).sum(dim=2, keepdim=True)
+        dx = _norm_input_cotangent(
+            xg, m16, resid, var, rsq, c * inv16, d_rsq, d_resid,
+            xg[0, 0].numel(), ctx.eps, lambda dc: _stat_sum(dc, m16.shape, nhwc))
+        return dx, None, None, None
+
+
+class _LayerNormLowp(torch.autograd.Function):
+    """:func:`_layer_norm_lowp` with the backward the JAX program compiles
+    (:func:`_norm_input_cotangent`): the scale's product transposed in
+    bf16, the inverse deviation's cotangent summed over the channels in
+    bf16 (:func:`_stat_sum`), the shift's in f32."""
+
+    @staticmethod
+    def forward(ctx, x, src, weight, bias, eps):
+        y, saved = _layer_norm_lowp(x, src, weight, bias, eps)
+        ctx.save_for_backward(*saved)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, c):
+        x, m16, resid, var, rsq, inv16, weight = ctx.saved_tensors
+        cw = c * weight.to(x.dtype)
+        d_inv16 = _stat_sum((x - m16) * cw, inv16.shape, None)
+        d_ss = (-c.float() * weight.float()).sum(dim=-1, keepdim=True)
+        d_inv = d_inv16.float() + resid * d_ss
+        dx = _norm_input_cotangent(
+            x, m16, resid, var, rsq, cw * inv16, d_inv, d_ss * rsq, x.shape[-1],
+            ctx.eps, lambda dc: _stat_sum(dc, m16.shape, None))
+        return dx, None, None, None, None
+
+
+def _lowp_grad(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> bool:
+    """Whether autograd records a bf16 norm of ``x``; raises if it would
+    need the scale's or the bias's gradient, which the port's bf16 norms
+    do not give."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return False
+    if weight.requires_grad or bias.requires_grad:
+        raise NotImplementedError("the bf16 norms give no gradient for "
+                                  "their scale and bias")
+    return True
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -91,25 +214,17 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     mean rounded to the carrier dtype (exact for values near the mean), the
     variance is taken of the centred values in f32, and the rounding
     residual of the mean is folded into the shift; the f32 scale is folded
-    into the inverse deviation before it is cast."""
+    into the inverse deviation before it is cast. Its backward is the JAX
+    program's (:class:`_GroupNormLowp`)."""
     g = min(groups, x.shape[1])
     if _f32(x):
         return F.group_norm(x, g, weight, bias, eps)
     n, c = x.shape[:2]
     xg = x.reshape(n, g, c // g, *x.shape[2:])
-    red = tuple(range(2, xg.dim()))
-    expand = (None,) * (x.dim() - 2)
-    nhwc = [0, *range(3, xg.dim()), 1, 2]           # (n, pixels..., g, c/g)
-    mean = xg.float().mean(dim=red, keepdim=True)
-    m16 = mean.to(x.dtype)
-    centered = xg - _broadcast(m16, xg.shape, nhwc)
-    cvar = (xg.float() - m16.float()).square().mean(dim=red, keepdim=True)
-    resid = mean - m16.float()
-    var = cvar - resid.square()
-    inv = torch.rsqrt(var + eps) * weight.float().reshape(g, c // g)[(..., *expand)]
-    shift = bias.float().reshape(g, c // g)[(..., *expand)] - resid * inv
-    y = (centered * _broadcast(inv.to(x.dtype), xg.shape, nhwc)
-         + _broadcast(shift.to(x.dtype), xg.shape, nhwc))
+    if _lowp_grad(x, weight, bias):
+        y = _GroupNormLowp.apply(xg, weight, bias, eps)
+    else:
+        y = _group_norm_lowp(xg, weight, bias, eps)[0]
     return y.reshape(x.shape)
 
 
@@ -119,20 +234,14 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     arithmetic of :func:`group_norm` (``p2p_tpu/models/nn.py:layer_norm``),
     with the scale applied after the cast, in the carrier dtype, and the
     shift built from the f32 scale; the mean of a residual sum made by
-    :func:`add` is taken of the sum before it was rounded."""
+    :func:`add` is taken of the sum before it was rounded. Its backward is
+    the JAX program's (:class:`_LayerNormLowp`)."""
     if _f32(x):
         return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
     src = getattr(x, "unrounded", None)
-    mean = (x.float() if src is None else src).mean(dim=-1, keepdim=True)
-    m16 = mean.to(x.dtype)
-    centered = x - _broadcast(m16, x.shape)
-    cvar = (x.float() - m16.float()).square().mean(dim=-1, keepdim=True)
-    resid = mean - m16.float()
-    var = cvar - resid.square()
-    inv = torch.rsqrt(var + eps)
-    scale_shift = bias.float() - resid * inv * weight.float()
-    y = (centered * _broadcast(inv.to(x.dtype), x.shape)) * weight.to(x.dtype)
-    return y + scale_shift.to(x.dtype)
+    if _lowp_grad(x, weight, bias):
+        return _LayerNormLowp.apply(x, src, weight, bias, eps)
+    return _layer_norm_lowp(x, src, weight, bias, eps)[0]
 
 
 def carrier(value: float, x: torch.Tensor) -> float:

@@ -1,31 +1,42 @@
-"""CLIP text encoder — the PyTorch counterpart of
-``p2p_tpu/models/text_encoder.py`` for the causal CLIP towers: SD-1.4's
-(quick_gelu) and SD-2.1's (23 layers of 1024, exact gelu).
+"""Text encoders — the PyTorch counterpart of
+``p2p_tpu/models/text_encoder.py``: the causal CLIP towers (SD-1.4's
+quick_gelu one, SD-2.1's 23 layers of 1024 with exact gelu) and LDM-256's
+non-causal LDMBert (32 layers of 1280, 8 heads of 64 without q/k/v bias,
+gelu). One config-driven pre-norm transformer covers them; the weights'
+names follow the config's ``arch`` (``checkpoint.encoder_entries``).
 
 ``ids (B, L) -> (B, L, D)`` final-layer hidden states after the final
-LayerNorm. The causal mask is additive (-1e9 above the diagonal), so its
-attention takes the materialized einsum, never the flash kernel.
+LayerNorm. CLIP's causal mask is additive (-1e9 above the diagonal), so its
+attention takes the materialized einsum; LDMBert's 77 positions are under
+the flash kernel's threshold, so its does too.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import nn
-from .checkpoint import StateDict
+from .checkpoint import StateDict, encoder_entries
 from .config import TextEncoderConfig
+
+
+@functools.lru_cache(maxsize=None)
+def _names(cfg: TextEncoderConfig):
+    """The state-dict name of each JAX parameter path
+    (``("layers", i, "q", "kernel")`` → ``...q_proj.weight``)."""
+    return {path: name for path, name, _ in encoder_entries(cfg)}
 
 
 def apply_text_encoder(sd: StateDict, cfg: TextEncoderConfig,
                        ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """``ids (B, L) -> (B, L, D)`` in ``dtype``; ``sd``'s linear and
     embedding weights in ``dtype`` (``engine.sampler.Pipeline.weights``)."""
-    if cfg.arch != "clip":
-        raise NotImplementedError(f"text encoder arch {cfg.arch!r} is not "
-                                  "ported to p2p_tpu_torch")
+    names = _names(cfg)
     b, length = ids.shape
-    x = nn.add(sd["text_model.embeddings.token_embedding.weight"][ids].to(dtype),
-               sd["text_model.embeddings.position_embedding.weight"][:length].to(dtype))
+    x = nn.add(sd[names[("token_embed",)]][ids].to(dtype),
+               sd[names[("pos_embed",)]][:length].to(dtype))
 
     mask = None
     if cfg.causal:
@@ -40,22 +51,26 @@ def apply_text_encoder(sd: StateDict, cfg: TextEncoderConfig,
     def split_heads(t):
         return t.reshape(b, length, heads, d_head).transpose(1, 2)
 
+    def norm(path, t):
+        return nn.layer_norm(t, sd[names[path + ("scale",)]],
+                             sd[names[path + ("bias",)]])
+
+    def lin(path, t):
+        bias = names.get(path + ("bias",))
+        return nn.linear(t, sd[names[path + ("kernel",)]],
+                         None if bias is None else sd[bias])
+
     for i in range(cfg.num_layers):
-        p = f"text_model.encoder.layers.{i}."
-
-        def lin(name, t):
-            return nn.linear(t, sd[p + name + ".weight"], sd.get(p + name + ".bias"))
-
-        h = nn.layer_norm(x, sd[p + "layer_norm1.weight"], sd[p + "layer_norm1.bias"])
-        q = split_heads(lin("self_attn.q_proj", h))
-        k = split_heads(lin("self_attn.k_proj", h))
-        v = split_heads(lin("self_attn.v_proj", h))
+        layer = ("layers", i)
+        h = norm(layer + ("ln1",), x)
+        q = split_heads(lin(layer + ("q",), h))
+        k = split_heads(lin(layer + ("k",), h))
+        v = split_heads(lin(layer + ("v",), h))
         attn = nn.fused_attention(q, k, v, scale, mask)
         attn = attn.transpose(1, 2).reshape(b, length, cfg.inner_dim)
-        x = nn.add(x, lin("self_attn.out_proj", attn))
+        x = nn.add(x, lin(layer + ("out",), attn))
 
-        h = nn.layer_norm(x, sd[p + "layer_norm2.weight"], sd[p + "layer_norm2.bias"])
-        x = nn.add(x, lin("mlp.fc2", act(lin("mlp.fc1", h))))
+        h = norm(layer + ("ln2",), x)
+        x = nn.add(x, lin(layer + ("fc2",), act(lin(layer + ("fc1",), h))))
 
-    return nn.layer_norm(x, sd["text_model.final_layer_norm.weight"],
-                         sd["text_model.final_layer_norm.bias"])
+    return norm(("final_ln",), x)

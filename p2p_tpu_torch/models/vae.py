@@ -1,11 +1,16 @@
-"""KL autoencoder — the PyTorch counterpart of ``p2p_tpu/models/vae.py``.
+"""Autoencoders — the PyTorch counterpart of ``p2p_tpu/models/vae.py``: the
+KL kind (SD's `AutoencoderKL`) and the VQ kind (LDM-256's f8 `VQModel`).
 
 ``decode`` takes latents ``(B, h, w, 4)`` (NHWC, as the JAX package) to an
-image ``(B, H, W, 3)`` in [-1, 1]; ``encode`` / ``encode_moments`` take an
-image back to latents (null-text inversion's starting point); inside both
-run NCHW. ``encode`` also runs in bf16 (a bf16 inversion's), rounding where
-the JAX program rounds as ``models/nn.py`` does; the decode runs in f32. The mid blocks' single-head self-attention over all pixels
-(S = 4096, d = 512 at SD-1.4's 64² latent) is the flash kernel K1.
+image ``(B, H, W, 3)`` in [-1, 1], the VQ kind snapping each latent vector
+to its nearest codebook entry first (:func:`quantize`); ``encode`` /
+``encode_moments`` take an image back to latents (null-text inversion's
+starting point); inside both run NCHW. ``encode`` also runs in bf16 (a bf16
+inversion's), rounding where the JAX program rounds as ``models/nn.py``
+does; the decode runs in f32. The mid blocks' single-head self-attention
+over all pixels (S = 4096, d = 512 at SD-1.4's 64² latent) is the flash
+kernel K1; at LDM-256's 32² latent (S = 1024) it stays materialized, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -47,14 +52,9 @@ def _apply_attn(sd: StateDict, p: str, x: torch.Tensor, groups: int) -> torch.Te
     return x + out
 
 
-def _check_kind(cfg: VAEConfig) -> None:
-    if cfg.kind != "kl":
-        raise NotImplementedError(f"VAE kind {cfg.kind!r} is not ported to "
-                                  "p2p_tpu_torch")
-
-
 def _encoder_trunk(sd: StateDict, cfg: VAEConfig, image: torch.Tensor) -> torch.Tensor:
-    """image (B, H, W, 3) → quant_conv output, NCHW: conv_in → down blocks
+    """image (B, H, W, 3) → quant_conv output, NCHW (the KL kind's mean and
+    log-variance, the VQ kind's embedding): conv_in → down blocks
     (diffusers' asymmetric pad of one row and one column, bottom and right,
     before each stride-2 conv) → mid → norm/conv_out → quant_conv."""
     g = cfg.groups
@@ -79,29 +79,48 @@ def _encoder_trunk(sd: StateDict, cfg: VAEConfig, image: torch.Tensor) -> torch.
 def encode_moments(sd: StateDict, cfg: VAEConfig, image: torch.Tensor):
     """image (B, H, W, 3) in [-1, 1] → the posterior's ``(mean, logvar)``,
     each ``(B, H/8, W/8, latent_channels)`` (NHWC), logvar clipped to
-    [-30, 20]."""
-    _check_kind(cfg)
+    [-30, 20]. The KL kind only."""
+    if cfg.kind != "kl":
+        raise ValueError(f"a {cfg.kind!r} autoencoder has no posterior moments")
     mean, logvar = _encoder_trunk(sd, cfg, image).permute(0, 2, 3, 1).chunk(2, dim=-1)
     return mean, logvar.clamp(-30.0, 20.0)
 
 
 def encode(sd: StateDict, cfg: VAEConfig, image: torch.Tensor) -> torch.Tensor:
-    """Deterministic latent: the posterior mean times ``scaling_factor``.
-    A bf16 image takes bf16 weights (``Pipeline.vae_encoder_weights``) and
-    gives a bf16 latent, the factor rounded to bf16 first as JAX rounds a
-    Python float that meets a bf16 array."""
-    mean, _ = encode_moments(sd, cfg, image)
+    """Deterministic latent: the posterior mean (the VQ kind: the
+    embedding before quantization) times ``scaling_factor``. A bf16 image
+    takes bf16 weights (``Pipeline.vae_encoder_weights``) and gives a bf16
+    latent, the factor rounded to bf16 first as JAX rounds a Python float
+    that meets a bf16 array."""
+    if cfg.kind == "vq":
+        mean = _encoder_trunk(sd, cfg, image).permute(0, 2, 3, 1)
+    else:
+        mean, _ = encode_moments(sd, cfg, image)
     if mean.dtype == torch.float32:
         return mean * cfg.scaling_factor
     return mean * nn.carrier(cfg.scaling_factor, mean)
 
 
+def quantize(sd: StateDict, z: torch.Tensor) -> torch.Tensor:
+    """Each latent vector of ``z`` (…, C) snapped to its nearest codebook
+    entry (L2), as the JAX package finds it: the distances expanded to
+    z·z − 2 z·e + e·e in f32, their ``argmin``, then a gather."""
+    cb = sd["quantize.embedding.weight"].float()                 # (K, C)
+    flat = z.float().reshape(-1, z.shape[-1])                    # (P, C)
+    d = ((flat * flat).sum(dim=1, keepdim=True) - 2.0 * flat @ cb.T
+         + (cb * cb).sum(dim=1)[None])
+    return cb[d.argmin(dim=1)].reshape(z.shape).to(z.dtype)
+
+
 def decode(sd: StateDict, cfg: VAEConfig, latents: torch.Tensor) -> torch.Tensor:
     """latents (B, h, w, 4) → image (B, H, W, 3) in [-1, 1], the input
-    scaled by 1 / ``scaling_factor`` first."""
-    _check_kind(cfg)
+    scaled by 1 / ``scaling_factor`` first and, for the VQ kind, quantized
+    (:func:`quantize`)."""
     g = cfg.groups
-    h = (latents / cfg.scaling_factor).permute(0, 3, 1, 2)
+    h = latents / cfg.scaling_factor
+    if cfg.kind == "vq":
+        h = quantize(sd, h)
+    h = h.permute(0, 3, 1, 2)
     h = nn.conv2d(h, sd["post_quant_conv.weight"], sd["post_quant_conv.bias"])
     h = nn.conv2d(h, sd["decoder.conv_in.weight"], sd["decoder.conv_in.bias"])
     h = _apply_resnet(sd, "decoder.mid_block.resnets.0", h, g)

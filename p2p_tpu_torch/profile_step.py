@@ -217,16 +217,19 @@ def _inner_iteration(pipe, device, dtype) -> dict:
     result = {"ms_per_inner_iteration": _cuda_ms(lambda: run(STEPS), STEPS)}
     if dtype != torch.float32:
         # What summing the norms' backward as the JAX program does costs:
-        # the iteration again with autograd's own f32 sums.
-        windowed, times = nn._broadcast, {"windowed": [], "f32": []}
+        # the iteration again with those sums taken by one f32 torch.sum.
+        def f32_sum(c, shape, order):
+            dims = [d for d in range(c.dim()) if shape[d] == 1 and c.shape[d] != 1]
+            return c.float().sum(dim=dims, keepdim=True).to(c.dtype)
+
+        windowed, times = nn._stat_sum, {"windowed": [], "f32": []}
         try:
             for label in ("windowed", "f32", "f32", "windowed"):
-                nn._broadcast = windowed if label == "windowed" else \
-                    (lambda a, shape, order=None: a)
+                nn._stat_sum = windowed if label == "windowed" else f32_sum
                 run(1)
                 times[label].append(_cuda_ms(lambda: run(STEPS), STEPS))
         finally:
-            nn._broadcast = windowed
+            nn._stat_sum = windowed
         result["ms_per_inner_iteration_by_norm_sums"] = times
     return {**result, **_breakdown(lambda: run(PROFILE_STEPS), PROFILE_STEPS)}
 

@@ -17,9 +17,11 @@ bf16, the running sum rounded at every add, in the windows of XLA's CPU
 tree-reduction rewrite (read from the compiled HLO below); the port sums
 them the same way (``kernels.reduce``), bit for bit with ``jax.lax.reduce``
 at the U-Net's shapes. The rest of a norm's backward, the f32 chains that
-XLA fuses around those sums, rounds in places of its own, so a norm's
-cotangents part from JAX's by a few roundings and stand as far from the
-f32 cotangent as JAX's do (PERF.md §6). At the U-Net's flash sites the JAX
+XLA fuses around those sums, the port follows as the HLO of
+``jax.jit(jax.vjp(nn.layer_norm / nn.group_norm, x)[1])`` computes them
+(``models/nn.py``: ``_LayerNormLowp``, ``_GroupNormLowp``), so a norm's
+cotangents agree with JAX's within one bf16 ulp of each element, and stand
+as far from the f32 cotangent as JAX's do. At the U-Net's flash sites the JAX
 program on the CPU takes ``jax.nn.dot_product_attention`` while the port
 runs K3/K4, held to the Pallas kernel's gradient in
 ``tests/test_torch_bf16_inversion.py``.
@@ -35,7 +37,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from p2p_tpu.models import nn as jnn  # noqa: E402
 
-from p2p_tpu_torch.kernels.reduce import BroadcastWindowSum, window_sum  # noqa: E402
+from p2p_tpu_torch.kernels.reduce import broadcast_sum, window_sum  # noqa: E402
 from p2p_tpu_torch.models import nn as pnn  # noqa: E402
 
 JB, TB = jnp.bfloat16, torch.bfloat16
@@ -137,6 +139,16 @@ def test_cotangent_matches_jax_within_one_ulp(name):
         assert _ulps(p, j) <= 1.0, (name, _ulps(p, j))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("name", NORMS)
+def test_norm_cotangent_matches_jax_within_one_ulp(name, seed):
+    """Every element of a bf16 norm's input cotangent within one bf16 ulp
+    of the JAX program's: the port's backward (``_LayerNormLowp``,
+    ``_GroupNormLowp``) rounds where XLA's compiled backward rounds."""
+    for j, p, _ in _taps(name, seed):
+        assert _ulps(p, j) <= 1.0, (name, seed, _ulps(p, j))
+
+
 @pytest.mark.parametrize("name", NORMS)
 def test_norm_cotangent_bf16_and_as_far_from_f32_as_jax(name):
     """The norms' cotangents: bf16 on both sides, within a few bf16
@@ -184,9 +196,7 @@ def test_group_norm_broadcast_cotangent_equals_jax():
     a = jnp.zeros((2, 1, 1, 8, 4), JB)
     want = jax.jit(lambda a, c: jax.vjp(lambda a: jnp.broadcast_to(a, c.shape), a)[1](c))(a, c)[0]
     ct = torch.from_numpy(np.asarray(c.astype(jnp.float32))).to(TB).permute(0, 3, 4, 1, 2)
-    at = torch.zeros(2, 8, 4, 1, 1, dtype=TB, requires_grad=True)     # (n, g, c/g, 1, 1)
-    out = BroadcastWindowSum.apply(at, ct.shape, [0, 3, 4, 1, 2])
-    (got,) = torch.autograd.grad(out, at, ct)
+    got = broadcast_sum(ct, (2, 8, 4, 1, 1), [0, 3, 4, 1, 2])        # (n, g, c/g, 1, 1)
     np.testing.assert_array_equal(got.float().permute(0, 3, 4, 1, 2).numpy(),
                                   np.asarray(want.astype(jnp.float32)))
 
@@ -201,10 +211,10 @@ def test_flash_site_cotangents_bf16_and_close():
 
 
 def test_jax_norm_backward_reduces_with_a_bf16_accumulator():
-    """Where the norms part: the JAX program's compiled backward of a bf16
-    group norm sums its cotangents in reducers that round the running sum
-    to bf16 after every add (XLA's CPU backend), where the port's sums
-    accumulate in f32 and round once."""
+    """Why the norms' sums are windowed bf16 sums: the JAX program's
+    compiled backward of a bf16 group norm sums its cotangents in reducers
+    that round the running sum to bf16 after every add (XLA's CPU
+    backend), where autograd's sums accumulate in f32 and round once."""
     x = jnp.ones((1, 8, 8, C), JB)
     hlo = jax.jit(lambda x, c: jax.vjp(lambda x: jnn.group_norm(_jp(), x, 8), x)[1](c)
                   ).lower(x, x).compile().as_text()

@@ -91,8 +91,8 @@ def test_cli_rejects_unsupported_flags():
                   ["--attn-maps", "maps"], ["--checkpoint", "ckpt"]):
         with pytest.raises(SystemExit, match="not supported by p2p_tpu_torch"):
             main(base + extra)
-    with pytest.raises(SystemExit):
-        main(["generate", "--prompt", "x", "--scheduler", "plms"])
+    with pytest.raises(SystemExit):      # plms and dpm are ported; no other
+        main(["generate", "--prompt", "x", "--scheduler", "euler"])
 
 
 def test_cli_edit_on_cpu(tmp_path):
